@@ -1,0 +1,368 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (etcd_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives the port's serving path at 100,000 groups × 5 peers (W=16, E=4,
+heartbeat_tick=3, hops=3, fsync on) on the card, and fails (nonzero
+exit) if any phase fails:
+
+1. device: the card's name and power limit; builds the CUDA kernels.
+2. kernel vs plain: `ring_resolve` against `ring_resolve_ref` on the card
+   at both of the round's call shapes, exactly equal; CUDA-event times of
+   the kernel, the plain version and one torch.gather, beside the bound.
+3. round: 40 full-width `step_routed_compact` rounds with the kernel and
+   with `resolve=ring_resolve_ref`, every output equal after every round;
+   30 small rounds on the card and on the CPU, bit-equal.
+4. engine: `MultiEngine` boots, elects, acks 1,000 PUTs from side
+   threads, serves their GETs and 100 quorum GETs, and after a restart
+   on the same data dir reads every acked write back. The kernels'
+   launch counts are read across this phase (the main path).
+5. one JSON line describing every kernel, then the last line
+   {"ok": true, "device": {...}}.
+
+Needs a CUDA device; without one it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+
+import numpy as np
+
+G, P, W, E = 100_000, 5, 16, 4
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+SEED = 1234
+
+
+def log(phase: str, t0: float, **kv) -> None:
+    print(json.dumps({"phase": phase, "s": round(time.perf_counter() - t0, 3),
+                      **kv}), flush=True)
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() over `iters` launches after a warm-up."""
+    import torch
+    for _ in range(3):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def resolve_inputs(rng, trailing):
+    """Random ring/idx/last with indices < 1, negative, below the window
+    and above last, all present."""
+    ring = rng.randint(1, 9, (G, P, W)).astype(np.int32)
+    last = rng.randint(0, 3 * W, (G, P)).astype(np.int32)
+    idx = rng.randint(-2 * W, 3 * W + 2, (G, P) + trailing).astype(np.int32)
+    return ring, idx, last
+
+
+def phase_kernel(dev):
+    """Kernel vs plain at both main-path call shapes; returns the kernel
+    entry of the report (times at the send-assembly shape T=(P,))."""
+    import torch
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    entry = None
+    max_err = 0
+    for label, trailing in (("send_assembly", (P,)), ("conflict_scan", (E,))):
+        ring, idx, last = (torch.from_numpy(a).to(dev)
+                           for a in resolve_inputs(rng, trailing))
+        got = ring_resolve(ring, idx, last)
+        want = ring_resolve_ref(ring, idx, last)
+        torch.cuda.synchronize()
+        err = int((got.long() - want.long()).abs().max())
+        max_err = max(max_err, err)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ring_resolve != plain at {label}")
+        flat = idx.reshape(G * P, -1)
+        lst = last.reshape(G * P, 1)
+        valid = (flat >= 1) & (flat > lst - W) & (flat <= lst)
+        touched = torch.zeros(G * P, W, dtype=torch.bool, device=dev)
+        rows = torch.arange(G * P, device=dev)[:, None].expand_as(flat)
+        touched[rows[valid], torch.remainder(flat, W)[valid].long()] = True
+        nbytes = 4 * (2 * idx.numel() + last.numel()
+                      + int(touched.sum()))
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        slot = torch.remainder(idx.reshape(G, P, -1), W).long()
+        ms = cuda_ms(lambda: ring_resolve(ring, idx, last))
+        plain_ms = cuda_ms(lambda: ring_resolve_ref(ring, idx, last))
+        library_ms = cuda_ms(lambda: torch.gather(ring, 2, slot))
+        log("kernel_vs_plain", t0, shape=label, idx_shape=list(idx.shape),
+            equal=True, ms=ms, plain_ms=plain_ms, gather_ms=library_ms,
+            bound_ms=bound_ms, bytes=nbytes)
+        if entry is None:
+            entry = {"name": "ring_resolve", "route": "cuda",
+                     "source": "etcd_tpu_torch/ops/csrc/ring_resolve.cu",
+                     "replaces": "etcd_tpu/ops/pallas_kernels.py:94",
+                     "shape": list(idx.shape), "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": library_ms}
+    entry["max_abs_err"] = max_err
+    return entry
+
+
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _states_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def phase_round(dev, groups=G, rounds=40):
+    """Full-width rounds with the kernel and with the plain resolve, in
+    lockstep, every output equal after every round."""
+    import torch
+    from etcd_tpu_torch.ops import kernel
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    from etcd_tpu_torch.ops.state import KernelConfig, LEADER, init_state
+    t0 = time.perf_counter()
+    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=E,
+                       heartbeat_tick=3)
+    st_k = init_state(cfg, stagger=True, device=dev)
+    st_p = init_state(cfg, stagger=True, device=dev)
+    ib_k = torch.zeros((groups, P, P, cfg.fields), dtype=torch.int32,
+                       device=dev)
+    ib_p = ib_k.clone()
+    launches0 = ring_resolve.launches
+    t_kernel = 0.0
+    for r in range(rounds):
+        lead = (st_k.state == LEADER) & st_k.peer_mask
+        has = lead.any(dim=1)
+        pc = torch.where(has, E, 0).to(torch.int32)
+        ps = kernel._first_true(lead, dim=1)
+        _sync(dev)
+        t1 = time.perf_counter()
+        st_k, ib_k, fl_k, nh_k = kernel.step_routed_compact(
+            cfg, st_k, ib_k, pc, ps, True, None, 3)
+        _sync(dev)
+        t_kernel += time.perf_counter() - t1
+        st_p, ib_p, fl_p, nh_p = kernel.step_routed_compact(
+            cfg, st_p, ib_p, pc, ps, True, None, 3, resolve=ring_resolve_ref)
+        if not (_states_equal(st_k, st_p) and torch.equal(ib_k, ib_p)
+                and torch.equal(fl_k, fl_p) and torch.equal(nh_k, nh_p)):
+            raise AssertionError(f"kernel round != plain round at {r}")
+    led = bool(((st_k.state == LEADER) & st_k.peer_mask).any(dim=1).all())
+    commits = int(st_k.commit.amax(dim=1).sum())
+    if not led or commits <= 0:
+        raise AssertionError(f"round: led={led} commits={commits}")
+    log("round", t0, groups=groups, rounds=rounds, equal_to_plain=True,
+        ms_per_round=t_kernel / rounds * 1e3,
+        committed_entries_per_s=commits / t_kernel,
+        launches=ring_resolve.launches - launches0)
+    if torch.device(dev).type == "cuda":
+        round_profile(cfg, st_k, ib_k, pc, ps)
+
+
+def round_profile(cfg, st, inbox, pc, ps, rounds=5):
+    """Where a steady-state round's time goes: torch.profiler over a few
+    rounds; device busy time, CUDA kernels per round, the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from etcd_tpu_torch.ops import kernel
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(rounds):
+            st, inbox, _, _ = kernel.step_routed_compact(
+                cfg, st, inbox, pc, ps, True, None, 3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    avg = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    top = sorted(avg, key=dev_us, reverse=True)[:6]
+    log("round_profile", t0, rounds=rounds,
+        wall_ms_per_round=wall / rounds * 1e3,
+        device_busy_ms_per_round=busy_ms / rounds if kern else None,
+        device_idle_share=1 - busy_ms / (wall * 1e3) if kern else None,
+        cuda_kernels_per_round=len(kern) / rounds if kern else None,
+        top_device_ops=[[e.key[:60], e.count // rounds,
+                         round(dev_us(e) / rounds / 1e3, 4)] for e in top])
+
+
+def phase_small_card_vs_cpu(dev, groups=64, rounds=30):
+    """Small-G trajectory with random drops on the card and on the CPU."""
+    import torch
+    from etcd_tpu_torch.ops import kernel
+    from etcd_tpu_torch.ops.state import (KernelConfig, LEADER, init_state,
+                                          state_to_numpy)
+    t0 = time.perf_counter()
+    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=E,
+                       heartbeat_tick=3)
+    rng = np.random.RandomState(SEED)
+    sts = {d: init_state(cfg, stagger=True, device=d) for d in (dev, "cpu")}
+    ibs = {d: torch.zeros((groups, P, P, cfg.fields), dtype=torch.int32,
+                          device=d) for d in (dev, "cpu")}
+    for r in range(rounds):
+        s_np = state_to_numpy(sts["cpu"])
+        lead = (s_np["state"] == LEADER) & s_np["peer_mask"]
+        pc = (rng.randint(0, E + 2, groups) * lead.any(1)).astype(np.int32)
+        ps = lead.argmax(1).astype(np.int32)
+        drop = (rng.rand(groups, P, P, 1) >= 0.1).astype(np.int32)
+        outs = {}
+        for d in (dev, "cpu"):
+            t = lambda a: torch.from_numpy(a).to(d)  # noqa: E731
+            outs[d] = kernel.step_routed_compact(
+                cfg, sts[d], ibs[d], t(pc), t(ps), bool(r % 4 != 3),
+                t(drop), 3)
+            sts[d], ibs[d] = outs[d][0], outs[d][1]
+        a, b = state_to_numpy(sts[dev]), state_to_numpy(sts["cpu"])
+        same = all(np.array_equal(a[k], b[k]) for k in a) and all(
+            torch.equal(x.cpu(), y) for x, y in zip(outs[dev][1:],
+                                                    outs["cpu"][1:]))
+        if not same:
+            raise AssertionError(f"card round != cpu round at {r}")
+    log("small_card_vs_cpu", t0, groups=groups, rounds=rounds, equal=True)
+
+
+def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
+    """The serving path through MultiEngine's public entry points.
+    Returns the ring_resolve launches counted across it."""
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
+    from etcd_tpu_torch.server.request import Request
+    t0 = time.perf_counter()
+    cfg = dict(groups=groups, peers=P, window=W, max_ents=E,
+               heartbeat_tick=3, fsync=True, stagger=True, hops=3,
+               device=str(dev))
+    gs = [i * groups // tenants for i in range(tenants)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as d:
+        ring_resolve.launches = 0       # the main path starts here
+        eng = MultiEngine(EngineConfig(data_dir=d, **cfg))
+        boot_rounds = 0
+        for _ in range(12):
+            eng.run_round()
+            boot_rounds += 1
+            if (np.where(eng.h_mask, eng.h_state, 0) == 2).any(1).all():
+                break
+        if not (np.where(eng.h_mask, eng.h_state, 0) == 2).any(1).all():
+            raise AssertionError("engine elections did not converge")
+        log("engine_boot", t0, rounds=boot_rounds)
+        eng.start()
+        lat, errs = {}, []
+
+        def worker(chunk, method):
+            for g in chunk:
+                try:
+                    t1 = time.perf_counter()
+                    if method == "PUT":
+                        res = eng.do(g, Request(method="PUT", path="/smoke",
+                                                val=f"v{g}"), timeout=60)
+                        lat[g] = time.perf_counter() - t1
+                    else:
+                        res = eng.do(g, Request(method="GET", path="/smoke",
+                                                quorum=True), timeout=60)
+                        if res.node.value != f"v{g}":
+                            raise AssertionError(f"quorum GET g={g}")
+                except Exception as e:  # noqa: BLE001 — reported below
+                    errs.append((g, method, repr(e)))
+
+        def run(items, method, n_threads):
+            th = [threading.Thread(target=worker,
+                                   args=(items[i::n_threads], method))
+                  for i in range(n_threads)]
+            for t in th:
+                t.start()
+            for t in th:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in th):
+                raise AssertionError(f"{method} workers hung")
+
+        r0, t1 = eng.round_no, time.perf_counter()
+        run(gs, "PUT", 100)
+        t_w = time.perf_counter() - t1
+        rounds_w = eng.round_no - r0
+        if errs or len(lat) != tenants:
+            raise AssertionError(f"PUT failures: {errs[:5]}")
+        for g in gs:
+            if eng.do(g, Request(method="GET", path="/smoke")).node.value \
+                    != f"v{g}":
+                raise AssertionError(f"local GET g={g}")
+        t1 = time.perf_counter()
+        run(gs[:quorum_gets], "GET", quorum_gets)
+        t_q = time.perf_counter() - t1
+        if errs:
+            raise AssertionError(f"quorum GET failures: {errs[:5]}")
+        eng.stop()
+        if eng.failed is not None:
+            raise eng.failed
+        launches = ring_resolve.launches   # the main path ends here
+        ms = np.array(sorted(lat.values())) * 1e3
+        log("engine_serve", t0, acked=len(lat), write_s=t_w,
+            acked_writes_per_s=len(lat) / t_w, rounds=rounds_w,
+            rounds_per_s=rounds_w / t_w, ack_p50_ms=float(np.percentile(ms, 50)),
+            ack_p99_ms=float(np.percentile(ms, 99)), quorum_gets=quorum_gets,
+            quorum_get_s=t_q, launches=launches,
+            phase_s={k: round(v, 4) for k, v in eng.phase_s.items()})
+        eng2 = MultiEngine(EngineConfig(data_dir=d, **cfg))
+        missing = [g for g in gs if eng2.store(g).get(
+            "/smoke", False, False).node.value != f"v{g}"]
+        eng2.stop()
+        if missing:
+            raise AssertionError(f"acked writes lost on restart: {missing[:5]}")
+        log("engine_restart", t0, read_back=len(gs))
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from etcd_tpu_torch.ops import cuda_build
+    from etcd_tpu_torch.server import engine  # noqa: F401 — fail early
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    print(json.dumps({"python": sys.version.split()[0],
+                      "torch": torch.__version__, "cuda": torch.version.cuda,
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    cuda_build.build("ring_resolve")
+    log("build", t0, kernels=["ring_resolve"])
+
+    entry = phase_kernel(dev)
+    phase_round(dev)
+    phase_small_card_vs_cpu(dev)
+    launches = phase_engine(dev)
+    if launches <= 0:
+        raise AssertionError("ring_resolve was not launched on the main path")
+    entry["launches"] = launches
+    entry["equal_to_plain"] = True
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,194 @@
+"""Native (C) hot paths with pure-Python fallbacks.
+
+`./build` compiles walcodec.c into this package; everything here works
+without it (the Python fallbacks are the reference implementations and
+tests assert byte-identical behavior — tests/test_native.py).
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import List, Tuple
+
+_HDR = struct.Struct("<IIQ")
+
+try:
+    from etcd_tpu_torch.native.walcodec import (encode_records as _c_encode,
+                                          scan_records as _c_scan)
+    HAVE_NATIVE = True
+except ImportError:
+    _c_encode = _c_scan = None
+    HAVE_NATIVE = False
+
+try:
+    from etcd_tpu_torch.native.walcodec import pack_multi as _c_pack_multi
+except ImportError:
+    _c_pack_multi = None
+
+try:
+    from etcd_tpu_torch.native.ingresscore import (
+        format_responses as _c_format_responses,
+        scan_requests as _c_scan_requests)
+    HAVE_NATIVE_INGRESS = True
+except ImportError:
+    _c_scan_requests = _c_format_responses = None
+    HAVE_NATIVE_INGRESS = False
+
+
+def pack_multi(items, tag: int) -> bytes:
+    """Multi-request entry packing (tag + u32 count + (u32 len + body)*,
+    each item's payload stripped of its leading tag byte) — the packing
+    server/engine._pack_entry ships and the batchframe channel reuses,
+    without importing the engine (the ingress process must stay light)."""
+    if _c_pack_multi is not None:
+        return _c_pack_multi(items, tag)
+    out = [bytes([tag]), struct.pack("<I", len(items))]
+    for it in items:
+        blob = it[1][1:]
+        out.append(struct.pack("<I", len(blob)))
+        out.append(blob)
+    return b"".join(out)
+
+
+def _py_encode_records(records, crc: int) -> Tuple[bytes, int]:
+    out = []
+    for rtype, payload in records:
+        crc = zlib.crc32(payload, crc) & 0xFFFFFFFF
+        out.append(_HDR.pack(rtype, crc, len(payload)))
+        out.append(payload)
+    return b"".join(out), crc
+
+
+def _py_scan_records(data: bytes, crc: int
+                     ) -> Tuple[List[Tuple[int, bytes]], int, int]:
+    out = []
+    off = 0
+    n = len(data)
+    while off + _HDR.size <= n:
+        rtype, rcrc, ln = _HDR.unpack_from(data, off)
+        if off + _HDR.size + ln > n:
+            break  # torn tail
+        payload = data[off + _HDR.size: off + _HDR.size + ln]
+        c = zlib.crc32(payload, crc) & 0xFFFFFFFF
+        if c != rcrc:
+            break  # bit flip: stop at the last good record
+        crc = c
+        out.append((rtype, payload))
+        off += _HDR.size + ln
+    return out, crc, off
+
+
+def encode_records(records, crc: int) -> Tuple[bytes, int]:
+    """Frame + chain-CRC a batch of (type, payload) records; returns
+    (buffer, new_crc). One call per fsync batch."""
+    if _c_encode is not None:
+        return _c_encode(list(records), crc)
+    return _py_encode_records(records, crc)
+
+
+def scan_records(data: bytes, crc: int
+                 ) -> Tuple[List[Tuple[int, bytes]], int, int]:
+    """Decode + CRC-verify records from `data` starting at chain value
+    `crc`; returns (records, new_crc, bytes_consumed). Stops cleanly at a
+    torn tail or a checksum mismatch."""
+    if _c_scan is not None:
+        return _c_scan(data, crc)
+    return _py_scan_records(data, crc)
+
+
+# ---------------------------------------------------------------------------
+# ingress hot loop (ingresscore.c): HTTP request scan + response format
+# ---------------------------------------------------------------------------
+
+# Limits + error codes shared between the C scanner and the fallback
+# (mirror server/ingress.py's _MAX_HEADER/_MAX_BODY).
+ING_MAX_HEADER = 64 * 1024
+ING_MAX_BODY = 4 * 1024 * 1024
+ING_MAX_REQS = 128
+ING_OK, ING_EBADLINE, ING_EBADLEN, ING_EBODY, ING_EHEADERS = range(5)
+
+_HTTP_REASONS = {200: "OK", 201: "Created", 400: "Bad Request",
+                 401: "Unauthorized", 403: "Forbidden",
+                 404: "Not Found", 405: "Method Not Allowed",
+                 408: "Request Timeout", 412: "Precondition Failed",
+                 500: "Internal Server Error",
+                 503: "Service Unavailable"}
+
+
+def _py_scan_requests(data) -> Tuple[list, int, int]:
+    """Reference twin of ingresscore.scan_requests: emit every complete
+    pipelined request as (method, target, ctype, auth, close, body),
+    plus bytes consumed and an error code."""
+    data = bytes(data)
+    out: list = []
+    off = 0
+    n = len(data)
+    while len(out) < ING_MAX_REQS:
+        end = data.find(b"\r\n\r\n", off)
+        if end < 0:
+            if n - off > ING_MAX_HEADER:
+                return out, off, ING_EHEADERS
+            break
+        head = data[off:end].decode("latin-1")
+        lines = head.split("\r\n")
+        parts = lines[0].split(" ", 2)
+        if len(parts) != 3:
+            return out, off, ING_EBADLINE
+        method, target, _ver = parts
+        ctype = auth = None
+        close = False
+        clen = 0
+        for ln in lines[1:]:
+            k, sep, v = ln.partition(":")
+            if not sep:
+                continue
+            k = k.strip().lower()
+            v = v.strip()
+            if k == "content-length":
+                if len(v) > 18 or (v != "" and not v.isdigit()):
+                    return out, off, ING_EBADLEN
+                clen = int(v or "0")
+            elif k == "content-type":
+                ctype = v
+            elif k == "authorization":
+                auth = v
+            elif k == "connection":
+                if v.lower() == "close":
+                    close = True
+        if clen > ING_MAX_BODY:
+            return out, off, ING_EBODY
+        if end + 4 + clen > n:
+            break
+        body = data[end + 4:end + 4 + clen]
+        out.append((method, target, ctype, auth, close, body))
+        off = end + 4 + clen
+    return out, off, ING_OK
+
+
+def _py_format_responses(items: list) -> List[bytes]:
+    out = []
+    for status, body in items:
+        reason = _HTTP_REASONS.get(status, "OK")
+        out.append((f"HTTP/1.1 {status} {reason}\r\n"
+                    f"Content-Type: application/json\r\n"
+                    f"Content-Length: {len(body)}\r\n\r\n"
+                    ).encode() + body)
+    return out
+
+
+def scan_requests(data) -> Tuple[list, int, int]:
+    """Scan a read buffer for complete HTTP/1.1 requests; returns
+    ([(method, target, ctype, auth, close, body)], consumed, err).
+    One GIL-releasing C pass when the extension is built."""
+    if _c_scan_requests is not None:
+        return _c_scan_requests(bytes(data))
+    return _py_scan_requests(data)
+
+
+def format_responses(items: list) -> List[bytes]:
+    """Materialize complete HTTP/1.1 responses (JSON content-type) from
+    (status, body) pairs — the ack fan-back path formats a whole flush's
+    responses in one call."""
+    if _c_format_responses is not None:
+        return _c_format_responses(items)
+    return _py_format_responses(items)

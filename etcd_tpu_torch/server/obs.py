@@ -1,0 +1,451 @@
+"""Pipeline observability plane: per-compartment metrics, a round
+flight recorder, and sampled end-to-end proposal traces.
+
+The compartment pipeline (round loop -> WAL writer shards -> applier
+shards -> ack gate) was observable only as cumulative phase_s sums that
+bench.py scrapes post-hoc. This module gives each stage the live
+queue+latency view "Scaling Replicated State Machines with
+Compartmentalization" (PAPERS.md) assumes — the reference ships the
+same shape as etcdserver/wal/snap/rafthttp metrics.go behind /metrics.
+
+Three planes, all built to stay off the round loop's critical path:
+
+  * Prometheus series (module-level, in metrics.REGISTRY): histograms
+    for round-loop phases, kernel step time, batch occupancy, per-shard
+    WAL fsync latency / group-commit size, per-applier-shard apply
+    batches and the ack-gate wait, plus queue-depth and watermark-lag
+    gauges and the pool router's per-shard request counts. Exposed by
+    the engine HTTP layer at /metrics (etcdhttp/tenants.py) and the
+    pool router (scripts/pool_serve.py).
+
+  * FlightRecorder: a fixed ring of per-round stage timestamps
+    (submitted -> stepped -> wal-submitted -> durable -> applied ->
+    acked). mark() is three list stores — near-zero steady state — and
+    the ring dumps as Chrome trace-event JSON (chrome://tracing /
+    Perfetto) via SIGUSR2, GET /debug/flight, or automatically when a
+    compartment fail-stops.
+
+  * Tracer: one in N proposals (ETCD_TPU_TRACE_EVERY) is followed by
+    request id through the HTTP front (engine.do), admission into a
+    round batch, the WAL submit, the durability gate, apply and ack —
+    an end-to-end span breakdown per sampled proposal. The rid rides
+    the durable Request payload, so a SIGKILL'd engine's replay
+    re-marks surviving sampled rids as "replayed".
+
+ETCD_TPU_OBS=off disables every engine-side observation (the A/B
+switch the instrumentation-overhead gate measures against); the series
+still exist, they just stay flat.
+"""
+from __future__ import annotations
+
+import json
+import logging
+import os
+import threading
+import time
+from typing import Dict, List, Optional
+
+from etcd_tpu_torch.utils import metrics
+
+log = logging.getLogger("etcd_tpu.obs")
+
+
+def obs_enabled() -> bool:
+    """The instrumentation master switch (default on). The off side is
+    the round-7 baseline the overhead A/B compares against."""
+    return os.environ.get("ETCD_TPU_OBS", "on").lower() not in (
+        "off", "0", "false", "no")
+
+
+# -- Prometheus series -------------------------------------------------------
+# Module-level so every engine in the process shares one set (the
+# registry is idempotent-by-name anyway). Sub-ms phases need finer
+# buckets than fsyncs; request-count histograms use count buckets.
+
+_COUNT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096,
+                  16384, 65536)
+
+round_phase = metrics.LabeledHistogram(
+    "etcd_engine_round_phase_seconds",
+    "Wall time of one round-loop phase (stage/dispatch/readback/record/"
+    "wal_submit/tail).", ("phase",))
+kernel_step = metrics.Histogram(
+    "etcd_engine_kernel_step_seconds",
+    "Device kernel step wall time per round (dispatch + readback).")
+round_batch = metrics.Histogram(
+    "etcd_engine_round_batch_requests",
+    "Client requests admitted into one round's log entries (batch "
+    "occupancy).", buckets=_COUNT_BUCKETS)
+rounds_total = metrics.Counter(
+    "etcd_engine_rounds_total", "Engine rounds completed.")
+acked_total = metrics.Counter(
+    "etcd_engine_acked_requests_total",
+    "Client requests acked by live rounds (the BENCH acked-writes "
+    "counter's Prometheus twin).")
+
+wal_fsync = metrics.LabeledHistogram(
+    "etcd_wal_writer_fsync_seconds",
+    "WAL writer shard group-commit duration (append batch + one fsync, "
+    "measured in the writer thread).", ("shard",))
+wal_commit_rounds = metrics.LabeledHistogram(
+    "etcd_wal_writer_group_commit_rounds",
+    "Round records covered by one WAL writer group commit.",
+    ("shard",), buckets=_COUNT_BUCKETS)
+wal_queue_depth = metrics.LabeledGauge(
+    "etcd_wal_writer_queue_depth",
+    "WAL writer shard queue depth observed at submit.", ("shard",))
+wal_watermark_lag = metrics.Gauge(
+    "etcd_wal_writer_watermark_lag_tickets",
+    "Submitted tickets not yet covered by the durability watermark "
+    "(min over shards).")
+
+applier_queue_depth = metrics.LabeledGauge(
+    "etcd_applier_queue_depth",
+    "Applier shard commit-view queue depth observed at enqueue.",
+    ("shard",))
+applier_batch = metrics.LabeledHistogram(
+    "etcd_applier_apply_batch_requests",
+    "Client requests applied+acked by one applier-shard pass.",
+    ("shard",), buckets=_COUNT_BUCKETS)
+ack_gate_wait = metrics.Histogram(
+    "etcd_ack_gate_wait_seconds",
+    "Time an applier shard waited at the durability gate "
+    "(wal.wait_durable) before releasing a pass's acks.")
+
+pool_router_requests = metrics.LabeledCounter(
+    "etcd_pool_router_requests_total",
+    "Requests the pool router relayed, by owning shard (refused/unknown "
+    "route under shard=\"none\").", ("shard",))
+
+# The zero-append read plane (engine._quorum_read): quorum reads leave
+# the etcd_server_proposal_* families entirely — they append nothing —
+# and meter here instead.
+read_index_confirms = metrics.Histogram(
+    "etcd_read_index_confirmations_per_round",
+    "Groups whose ReadIndex quorum confirmation succeeded in one read "
+    "round.", buckets=_COUNT_BUCKETS)
+read_index_parked = metrics.Gauge(
+    "etcd_read_index_parked_reads",
+    "Quorum reads parked on the read plane: awaiting a leadership "
+    "confirmation or the apply cursor reaching their read index.")
+read_index_durations = metrics.Summary(
+    "etcd_read_index_durations_milliseconds",
+    "The latency distributions of quorum reads served by the ReadIndex "
+    "plane (submit to serve).")
+read_index_served = metrics.Counter(
+    "etcd_read_index_reads_total",
+    "Quorum reads served by the ReadIndex plane (zero log entries, zero "
+    "WAL bytes).")
+read_index_failed = metrics.Counter(
+    "etcd_read_index_failed_total",
+    "Quorum reads that timed out before confirmation + apply catch-up.")
+read_index_lease = metrics.Counter(
+    "etcd_read_index_lease_reads_total",
+    "Quorum reads that skipped the confirmation round under a leader "
+    "lease (EngineConfig.read_lease_ms).")
+
+# The coalescing ingress tier (server/ingress.py): a stateless front
+# process that buffers shallow per-tenant writes inside an adaptive
+# window and ships each flush upstream as ONE /tenants/{t}/batch
+# request. These families meter the manufactured batch depth (the whole
+# point of the tier), why each window closed, how many batches are in
+# flight upstream, and the watch fan-out hub. Module-level like the rest
+# so the ingress process just imports and observes.
+ingress_batch = metrics.Histogram(
+    "etcd_ingress_coalesce_batch_requests",
+    "Client writes coalesced into one upstream batch flush (the depth "
+    "the ingress manufactured from shallow clients).",
+    buckets=_COUNT_BUCKETS)
+ingress_flush_reason = metrics.LabeledCounter(
+    "etcd_ingress_flush_reason_total",
+    "Why a coalescing window closed: count (flush_max_requests hit), "
+    "bytes (flush_max_bytes hit), or drain (upstream inflight slot "
+    "freed with a non-empty buffer).", ("reason",))
+ingress_inflight = metrics.Gauge(
+    "etcd_ingress_upstream_inflight_batches",
+    "Coalesced batches currently in flight to the upstream engine.")
+ingress_acked = metrics.Counter(
+    "etcd_ingress_acked_requests_total",
+    "Client writes acked by the ingress AFTER the upstream batch ack "
+    "(never before — an ingress crash cannot lose an acked write).")
+ingress_errors = metrics.Counter(
+    "etcd_ingress_upstream_errors_total",
+    "Client writes failed back because their upstream flush errored "
+    "(connection loss, non-200 batch response).")
+ingress_ack_ms = metrics.Summary(
+    "etcd_ingress_ack_milliseconds",
+    "Client-observed write ack latency through the ingress (enqueue "
+    "into the coalescing window -> upstream-acked fan-back).")
+ingress_hub_watchers = metrics.Gauge(
+    "etcd_ingress_hub_watchers",
+    "Downstream watchers currently multiplexed onto upstream watch "
+    "streams by the fan-out hub.")
+ingress_hub_streams = metrics.Gauge(
+    "etcd_ingress_hub_streams",
+    "Upstream watch streams the hub holds open (one per live "
+    "(tenant, prefix, recursive) key).")
+ingress_hub_deliveries = metrics.Counter(
+    "etcd_ingress_hub_deliveries_total",
+    "Events fanned out to downstream watchers by the hub (one upstream "
+    "event delivered to N watchers counts N).")
+ingress_lease_reads = metrics.Counter(
+    "etcd_ingress_lease_reads_total",
+    "Quorum GETs the ingress downgraded to plain local GETs under its "
+    "read lease (a quorum-confirmed upstream ack within read_lease_ms).")
+ingress_slow_clients = metrics.Counter(
+    "etcd_ingress_slow_clients_total",
+    "Downstream connections dropped because their buffered response "
+    "backlog exceeded the per-connection cap (a stalled watcher on a "
+    "busy key must not grow ingress memory without bound).")
+
+# The pipelined binary upstream channel (server/batchframe.py): one
+# persistent frame connection per lane, up to flush_window flushes in
+# flight, demuxed by flush id. These families meter the channel's
+# lifecycle (reconnects with capped backoff, JSON-path fallbacks when
+# the upstream doesn't speak frames) and its frame traffic.
+ingress_upstream_reconnects = metrics.Counter(
+    "etcd_ingress_upstream_reconnects_total",
+    "Upstream channel (re-)establishment attempts after a failure or a "
+    "severed channel; paced by capped exponential backoff so a flapping "
+    "engine never spins a lane flusher hot.")
+ingress_upstream_fallbacks = metrics.Counter(
+    "etcd_ingress_upstream_fallbacks_total",
+    "Lanes that fell back from the binary batchframe channel to the "
+    "JSON /batch path because the upstream refused the 101 handshake "
+    "(e.g. a router that only rewrites /tenants/{t}/batch).")
+ingress_upstream_frames = metrics.LabeledCounter(
+    "etcd_ingress_upstream_frames_total",
+    "Binary frames on the upstream channel by direction (sent = request "
+    "frames / one per flush; recv = response frames).", ("direction",))
+ingress_upstream_severed = metrics.Counter(
+    "etcd_ingress_upstream_severed_flushes_total",
+    "In-flight flushes failed back with 503 because their channel died "
+    "before their response frame arrived (exactly the registered "
+    "flush ids — never a retry, a dead flush MAY have committed).")
+
+# The native (ingresscore.c) hot loop. The *_total counters meter the
+# scan/format hot loop regardless of codec; etcd_ingress_native_enabled
+# says which implementation is serving (1 = C extension, 0 = the pure-
+# Python reference fallback).
+ingress_native_enabled = metrics.Gauge(
+    "etcd_ingress_native_enabled",
+    "1 when the ingresscore C extension serves the HTTP scan/format hot "
+    "loop, 0 when the pure-Python fallback does.")
+ingress_native_scanned = metrics.Counter(
+    "etcd_ingress_native_scanned_requests_total",
+    "Client HTTP requests emitted by the read-buffer scanner (one "
+    "GIL-releasing C pass per readable event when native is enabled).")
+ingress_native_formatted = metrics.Counter(
+    "etcd_ingress_native_formatted_responses_total",
+    "Client HTTP responses materialized by the batch response formatter "
+    "(whole-flush fan-backs format in one call when native is enabled).")
+
+
+# -- flight recorder ---------------------------------------------------------
+
+# Stage indices into a ring row (row[0] is the round number; stage k's
+# timestamp lives at row[1+k]).
+SUBMITTED, STEPPED, WAL_SUBMITTED, DURABLE, APPLIED, ACKED = range(6)
+STAGE_NAMES = ("submitted", "stepped", "wal_submitted", "durable",
+               "applied", "acked")
+
+
+class FlightRecorder:
+    """Fixed ring of per-round stage timestamps.
+
+    mark() is the hot path: slot lookup + two or three list stores, no
+    locks, no allocation. Rounds map to slots by round_no % capacity;
+    the round loop (the only SUBMITTED writer) resets a slot when it
+    reuses it, and late markers from writer/applier threads verify the
+    slot still holds their round before writing — a wrapped slot drops
+    the stale mark instead of corrupting the new round's row. Lost
+    marks under that race are bounded to rounds a full ring apart.
+    """
+
+    def __init__(self, capacity: int = 0) -> None:
+        cap = capacity or int(os.environ.get("ETCD_TPU_FLIGHT_CAP",
+                                             "4096"))
+        self.capacity = max(16, cap)
+        # row = [round_no, t_submitted, ..., t_acked]; -1 = unset.
+        self._ring: List[list] = [[-1] + [0.0] * 6
+                                  for _ in range(self.capacity)]
+        self.enabled = obs_enabled()
+        self.dumps = 0
+
+    def mark(self, round_no: int, stage: int,
+             t: Optional[float] = None) -> None:
+        if not self.enabled or round_no < 0:
+            return
+        row = self._ring[round_no % self.capacity]
+        if stage == SUBMITTED:
+            # The round loop claims the slot: one list rebind keeps the
+            # reset a single atomic store (late markers for the evicted
+            # round then miss the identity check below and drop out).
+            self._ring[round_no % self.capacity] = \
+                [round_no, t if t is not None else time.perf_counter(),
+                 0.0, 0.0, 0.0, 0.0, 0.0]
+            return
+        if row[0] != round_no:
+            return                      # slot wrapped; drop the late mark
+        row[1 + stage] = t if t is not None else time.perf_counter()
+
+    def snapshot(self) -> List[list]:
+        """Rows holding at least a SUBMITTED mark, in round order."""
+        rows = [list(r) for r in self._ring if r[0] >= 0]
+        rows.sort(key=lambda r: r[0])
+        return rows
+
+    def to_trace_events(self) -> dict:
+        """Chrome trace-event JSON (load in chrome://tracing/Perfetto).
+
+        Each round becomes one tid; every present stage timestamp is an
+        instant event, and each consecutive present stage pair becomes a
+        complete ("X") span, so the per-round waterfall reads directly.
+        """
+        rows = self.snapshot()
+        events = []
+        t0 = min((r[1] for r in rows), default=0.0)
+
+        def us(t):
+            return (t - t0) * 1e6
+
+        for row in rows:
+            rnd = row[0]
+            stamps = [(k, row[1 + k]) for k in range(6)
+                      if row[1 + k] > 0.0]
+            for k, t in stamps:
+                events.append({"name": STAGE_NAMES[k], "ph": "i",
+                               "ts": us(t), "pid": 1, "tid": rnd,
+                               "s": "t", "args": {"round": rnd}})
+            for (ka, ta), (kb, tb) in zip(stamps, stamps[1:]):
+                events.append({
+                    "name": f"{STAGE_NAMES[ka]}->{STAGE_NAMES[kb]}",
+                    "ph": "X", "ts": us(ta), "dur": max(us(tb) - us(ta),
+                                                        0.01),
+                    "pid": 1, "tid": rnd, "args": {"round": rnd}})
+        return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+    def dump(self, data_dir: str, reason: str) -> Optional[str]:
+        """Write the ring as trace-event JSON under <data_dir>/
+        diagnostics; never raises (dumping is diagnostics, not a
+        failure path of its own)."""
+        try:
+            ddir = os.path.join(data_dir, "diagnostics")
+            os.makedirs(ddir, exist_ok=True)
+            self.dumps += 1
+            path = os.path.join(
+                ddir, f"flight-{reason}-{self.dumps:04d}.trace.json")
+            with open(path, "w") as f:
+                json.dump(self.to_trace_events(), f)
+            log.warning("flight recorder dumped to %s (%s)", path, reason)
+            return path
+        except Exception:  # noqa: BLE001 — diagnostics must not cascade
+            log.exception("flight recorder dump failed (%s)", reason)
+            return None
+
+
+# -- sampled proposal traces -------------------------------------------------
+
+TRACE_STAGES = ("submit", "admitted", "wal_submit", "durable", "applied",
+                "acked", "replayed")
+
+
+class Tracer:
+    """Deterministic 1-in-N proposal sampling by request id.
+
+    rid % every == 0 selects a proposal at the HTTP front (engine.do);
+    the same predicate re-selects it at every later stage — including a
+    restarted process's WAL replay, because the rid rides the durable
+    Request payload — so no sampling decision needs to travel. Off
+    (every=0) every call is one predicate test.
+    """
+
+    MAX_SPANS = 512
+
+    def __init__(self, every: Optional[int] = None) -> None:
+        if every is None:
+            every = int(os.environ.get("ETCD_TPU_TRACE_EVERY", "0"))
+        self.every = max(0, every)
+        self._lock = threading.Lock()
+        self._spans: Dict[int, dict] = {}
+
+    def sampled(self, rid: int) -> bool:
+        return bool(self.every) and rid % self.every == 0
+
+    def mark(self, rid: int, stage: str, **extra) -> None:
+        """Record one stage timestamp for a sampled rid. Cold path by
+        construction (1 in N); unsampled rids pay one modulo."""
+        if not self.sampled(rid):
+            return
+        t = time.perf_counter()
+        with self._lock:
+            span = self._spans.get(rid)
+            if span is None:
+                if len(self._spans) >= self.MAX_SPANS:
+                    # Drop the oldest finished span first, else oldest.
+                    victim = next(
+                        (k for k, s in self._spans.items()
+                         if "acked" in s["stages"]
+                         or "replayed" in s["stages"]),
+                        next(iter(self._spans)))
+                    del self._spans[victim]
+                span = self._spans[rid] = {"rid": rid, "stages": {}}
+            span["stages"][stage] = t
+            span.update(extra)
+
+    def spans(self) -> List[dict]:
+        with self._lock:
+            return [dict(s, stages=dict(s["stages"]))
+                    for s in self._spans.values()]
+
+    def dump(self) -> dict:
+        """Spans with per-stage deltas (seconds from submit, or from
+        the earliest stage seen — replayed spans have no submit)."""
+        out = []
+        for s in sorted(self.spans(), key=lambda s: s["rid"]):
+            stages = s["stages"]
+            base = min(stages.values())
+            out.append({**{k: v for k, v in s.items() if k != "stages"},
+                        "stages": {k: round(v - base, 6)
+                                   for k, v in sorted(
+                                       stages.items(),
+                                       key=lambda kv: kv[1])}})
+        return {"every": self.every, "spans": out}
+
+
+class EngineObs:
+    """One engine's bound observability plane: pre-resolved metric
+    children for its shard geometry (hot paths index lists instead of
+    formatting label keys), the flight recorder, and the tracer.
+    `enabled` False (ETCD_TPU_OBS=off) makes the engine skip every
+    observation — the series stay registered but flat."""
+
+    def __init__(self, wal_shards: int, applier_shards: int) -> None:
+        self.enabled = obs_enabled()
+        self.flight = FlightRecorder()
+        self.tracer = Tracer()
+        self.h_phase = {p: round_phase.labels(p)
+                        for p in ("stage", "dispatch", "readback",
+                                  "record", "wal_submit", "tail")}
+        self.h_step = kernel_step
+        self.h_batch = round_batch
+        self.h_wal_fsync = [wal_fsync.labels(k)
+                            for k in range(wal_shards)]
+        self.h_wal_commit = [wal_commit_rounds.labels(k)
+                             for k in range(wal_shards)]
+        self.g_wal_queue = [wal_queue_depth.labels(k)
+                            for k in range(wal_shards)]
+        self.g_wal_lag = wal_watermark_lag
+        self.g_appl_queue = [applier_queue_depth.labels(k)
+                             for k in range(applier_shards)]
+        self.h_appl_batch = [applier_batch.labels(k)
+                             for k in range(applier_shards)]
+        self.h_ack_wait = ack_gate_wait
+        self.c_rounds = rounds_total
+        self.c_acked = acked_total
+        self.h_read_confirms = read_index_confirms
+        self.g_read_parked = read_index_parked
+        self.s_read_dur = read_index_durations
+        self.c_reads_served = read_index_served
+        self.c_reads_failed = read_index_failed
+        self.c_reads_lease = read_index_lease

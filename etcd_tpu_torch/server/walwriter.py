@@ -1,0 +1,410 @@
+"""WAL-writer compartment: the engine's durability stage as its own
+pipeline stage, off the round loop's critical path.
+
+PR 6's applier pool left the round loop's serial append+fsync as the
+clock — the appliers win precisely by draining UNDER fsync stalls, so
+fsync set the period. This module applies the same compartmentalization
+(PAPERS.md "Scaling Replicated State Machines with Compartmentalization")
+to the log stage itself:
+
+  round loop --submit(rec)--> [per-range writer shard queues]
+                                 |  each shard thread drains its queue
+                                 |  as ONE batch: append every queued
+                                 |  sub-record, then ONE fsync (group
+                                 v  commit across rounds)
+                       durability watermark (min over shard tails)
+                                 |
+  applier workers --wait_durable(ticket)--> release acks
+
+The crash-ordering invariant (engine.py header; reference doc.go:31-39)
+is preserved by GATING, not ordering: appliers may apply a round's
+entries before its record is durable (stores are in-memory and die with
+the process anyway), but client acks for that round are withheld until
+the writer publishes a durability watermark at or past it. A crash
+therefore never leaves an acked write above the replayable boundary.
+
+Sharding (wal_shards=S > 1) splits each RoundRecord by tenant range into
+S sub-records appended to S independent segment streams (subdirs
+wal-shard-NNNN/), whose fsyncs proceed in parallel on a multi-core box.
+Batches are kept in lockstep across streams: a shard with no deltas for
+a batch appends an empty marker record at the batch's top round, so
+every stream's tail advances with every group commit and the global
+durable boundary is simply D = min over streams of the stream tail.
+Replay computes D, physically truncates any stream's whole records
+beyond it (EngineWAL.cut_after — those rounds lost the cross-stream
+commit race and were never acked, but surviving on disk they could
+alias reused round numbers after restart), then merges all streams'
+records in round order. The S=1 layout is byte-compatible with the
+pre-compartment engine WAL (records land in the root dir); upgrading an
+existing dir to S>1 freezes the root stream as legacy history and all
+new records go to the shard streams — geometry.json pins S thereafter.
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+from collections import deque
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from etcd_tpu_torch.server.enginewal import EngineWAL, RoundRecord
+from etcd_tpu_torch.server.obs import DURABLE as _FLIGHT_DURABLE
+
+_STATS_WINDOW = 4096   # per-shard rolling sample window for stats()
+
+
+def shard_dir(root: str, idx: int) -> str:
+    return os.path.join(root, f"wal-shard-{idx:04d}")
+
+
+def split_record(rec: RoundRecord,
+                 ranges: List[Tuple[int, int]]
+                 ) -> List[Optional[RoundRecord]]:
+    """Split one global RoundRecord into per-tenant-range sub-records
+    (columns filtered by group id; entries/confs/snaps by their g).
+    Ranges with no deltas map to None — the writer coalesces those into
+    at most one empty marker per batch. Sub-records replay additively:
+    the ranges are disjoint, so applying all of them in any order within
+    the round reproduces the global record."""
+    out: List[Optional[RoundRecord]] = []
+    for lo, hi in ranges:
+        sub = RoundRecord(round_no=rec.round_no)
+        m = (rec.hs_g >= lo) & (rec.hs_g < hi)
+        if m.any():
+            sub.hs_g, sub.hs_p = rec.hs_g[m], rec.hs_p[m]
+            sub.hs_term, sub.hs_vote = rec.hs_term[m], rec.hs_vote[m]
+            sub.hs_commit = rec.hs_commit[m]
+        m = (rec.last_g >= lo) & (rec.last_g < hi)
+        if m.any():
+            sub.last_g, sub.last_p = rec.last_g[m], rec.last_p[m]
+            sub.last_v = rec.last_v[m]
+        m = (rec.ring_g >= lo) & (rec.ring_g < hi)
+        if m.any():
+            sub.ring_g, sub.ring_p = rec.ring_g[m], rec.ring_p[m]
+            sub.ring_i, sub.ring_t = rec.ring_i[m], rec.ring_t[m]
+        sub.entries = [e for e in rec.entries if lo <= e[0] < hi]
+        sub.confs = [c for c in rec.confs if lo <= c[0] < hi]
+        sub.snaps = [s for s in rec.snaps if lo <= s[0] < hi]
+        out.append(None if sub.is_empty() else sub)
+    return out
+
+
+class _WriterShard:
+    """One compartment of the writer pool: a thread owning one segment
+    stream and the contiguous tenant range [g_lo, g_hi), with its own
+    hand-off queue, condition variable, durable-tail publication and
+    rolling stats. Streams share no files, so S shards drive S parallel
+    fsyncs (each an I/O wait with the GIL released)."""
+
+    __slots__ = ("idx", "g_lo", "g_hi", "wal", "cv", "q", "stop", "exc",
+                 "thread", "durable", "fsyncs", "fsync_ms", "batch_sizes")
+
+    def __init__(self, idx: int, g_lo: int, g_hi: int,
+                 wal: EngineWAL) -> None:
+        self.idx = idx
+        self.g_lo = g_lo
+        self.g_hi = g_hi
+        self.wal = wal
+        self.cv = threading.Condition()
+        self.q: deque = deque()
+        self.stop = False
+        self.exc: Optional[Exception] = None
+        self.thread: Optional[threading.Thread] = None
+        self.durable = 0           # published ticket (guarded by owner._wm)
+        self.fsyncs = 0
+        self.fsync_ms: deque = deque(maxlen=_STATS_WINDOW)
+        self.batch_sizes: deque = deque(maxlen=_STATS_WINDOW)
+
+
+class WALWriter:
+    """The engine's WAL facade: same read/checkpoint surface as
+    EngineWAL (replay/load_checkpoint/save_checkpoint/close), with the
+    write side compartmentalized behind submit()/wait_durable().
+
+    Synchronous callers (admin surgery, conf rounds, pipeline-off mode)
+    use append_sync(), which is submit + wait — the record is durable
+    when it returns, exactly the old EngineWAL.append contract."""
+
+    def __init__(self, dirname: str, groups: int, shards: int = 1,
+                 segment_size: int = 64 * 1024 * 1024,
+                 fsync: bool = True, queue_rounds: int = 64,
+                 phase_s: Optional[Dict[str, float]] = None,
+                 obs=None) -> None:
+        self.dir = dirname
+        self.groups = groups
+        self.fsync = fsync
+        self.queue_rounds = max(1, queue_rounds)
+        self.phase_s = phase_s if phase_s is not None else {}
+        # Observability plane (obs.EngineObs): per-shard fsync/group-
+        # commit histograms, queue-depth + watermark-lag gauges, flight
+        # recorder durable marks. None (or disabled) = zero overhead.
+        self._obs = obs if (obs is not None and obs.enabled) else None
+        S = max(1, min(shards, groups))
+        # Root stream: THE stream at S=1 (byte-compatible with the
+        # pre-compartment layout), checkpoint store + frozen legacy
+        # history at S>1.
+        self.root = EngineWAL(dirname, segment_size=segment_size,
+                              fsync=fsync)
+        per = -(-groups // S)
+        ranges = [(min(k * per, groups), min((k + 1) * per, groups))
+                  for k in range(S)]
+        ranges = [(lo, hi) for lo, hi in ranges if lo < hi]
+        if len(ranges) == 1:
+            streams = [self.root]
+        else:
+            streams = [EngineWAL(shard_dir(dirname, k),
+                                 segment_size=segment_size, fsync=fsync)
+                       for k in range(len(ranges))]
+        self.shards = [_WriterShard(k, lo, hi, w)
+                       for k, ((lo, hi), w) in enumerate(zip(ranges,
+                                                             streams))]
+        self._ranges = ranges
+        # Watermark: tickets are a monotonic SUBMISSION sequence (not
+        # round numbers — an admin record and the round's own record can
+        # share a round_no, and a round-numbered watermark would release
+        # the second record's acks on the first record's fsync). The
+        # published watermark is min over shards of the last completed
+        # batch's ticket; waiters block on it. The on-disk replay
+        # boundary stays round-based (stream tails), which is what a
+        # restart can actually observe.
+        self._wm = threading.Condition()
+        self._durable = 0
+        self._last_ticket = 0
+        self._depths: deque = deque(maxlen=_STATS_WINDOW)
+        self._submitted = 0
+        self._closed = False
+
+    # -- write side ---------------------------------------------------------
+
+    @property
+    def ticket(self) -> int:
+        """Ticket of the newest submitted record — what a commit view
+        carries so ack release can gate on wait_durable(). Commit
+        advance always rides a non-empty (hence submitted) record, so
+        gating on the last submitted ticket covers every ackable entry;
+        empty rounds never move it (nothing new to ack)."""
+        return self._last_ticket
+
+    def _ensure_threads(self) -> None:
+        for sh in self.shards:
+            t = sh.thread
+            if t is None or not t.is_alive():
+                if sh.exc is not None:
+                    continue   # terminally failed: the seams re-raise
+                sh.stop = False
+                sh.thread = threading.Thread(
+                    target=self._writer_loop, args=(sh,), daemon=True,
+                    name=f"engine-wal-writer-{sh.idx}")
+                sh.thread.start()
+        self._closed = False
+
+    def _writer_loop(self, sh: _WriterShard) -> None:
+        # Phase key: "wal_fsync" for the single-stream writer (keeps
+        # profiles comparable with pre-compartment captures),
+        # "wal_fsync[k]" per stream otherwise — one writer thread per
+        # key. This is also where the fsync phase time is RECORDED now:
+        # it happens here, not in the round loop, so the per-phase
+        # profile stays truthful with fsync off the critical path.
+        pkey = ("wal_fsync" if len(self.shards) == 1
+                else f"wal_fsync[{sh.idx}]")
+        sharded = len(self.shards) > 1
+        while True:
+            with sh.cv:
+                while not sh.q and not sh.stop:
+                    sh.cv.wait(0.2)
+                if not sh.q:
+                    return          # stop requested and queue drained
+                batch = list(sh.q)
+                sh.q.clear()
+                sh.cv.notify_all()  # unblock submit() backpressure NOW:
+                # the round loop refills while this batch fsyncs
+            t0 = time.perf_counter()
+            try:
+                for _, _, sub in batch:
+                    if sub is not None:
+                        sh.wal.append_nosync(sub)
+                top_ticket, top_round = batch[-1][0], batch[-1][1]
+                if sharded and batch[-1][2] is None:
+                    # Keep stream tails in lockstep at batch granularity:
+                    # an empty marker advances this stream's tail to the
+                    # batch's top round so the min-over-streams boundary
+                    # never stalls on a range with no deltas. At most one
+                    # marker per group commit.
+                    sh.wal.append_nosync(RoundRecord(round_no=top_round))
+                sh.wal.sync()       # ONE fsync covers the whole batch
+            except Exception as e:  # noqa: BLE001 — re-raised at the seam
+                if self._obs is not None:
+                    # A writer-shard fail-stop kills the whole
+                    # durability pipeline: dump the round timeline.
+                    self._obs.flight.dump(self.dir,
+                                          f"wal-shard-{sh.idx}")
+                with sh.cv:
+                    sh.exc = e
+                    sh.cv.notify_all()
+                with self._wm:
+                    self._wm.notify_all()   # wake waiters to observe exc
+                return
+            dt = time.perf_counter() - t0
+            self.phase_s[pkey] = self.phase_s.get(pkey, 0.0) + dt
+            sh.fsyncs += 1
+            sh.fsync_ms.append(dt * 1000.0)
+            sh.batch_sizes.append(len(batch))
+            ob = self._obs
+            if ob is not None:
+                ob.h_wal_fsync[sh.idx].observe(dt)
+                ob.h_wal_commit[sh.idx].observe(len(batch))
+                for _t, rnd, _sub in batch:
+                    ob.flight.mark(rnd, _FLIGHT_DURABLE)
+            with self._wm:
+                sh.durable = top_ticket
+                d = min(s.durable for s in self.shards)
+                if d > self._durable:
+                    self._durable = d
+                    self._wm.notify_all()
+            if ob is not None:
+                ob.g_wal_lag.set(self._last_ticket - self._durable)
+
+    def submit(self, rec: RoundRecord) -> int:
+        """Queue one round's record for durability and return its ticket
+        (a monotonic submission sequence number). Blocks while any
+        shard's queue is at the cap (bounds ack latency: a deeper queue
+        means a bigger group commit, not unbounded lag). The caller must
+        not ack anything the record covers before wait_durable(ticket)
+        returns."""
+        self._ensure_threads()
+        subs = (split_record(rec, self._ranges)
+                if len(self.shards) > 1 else [rec])
+        ticket = self._last_ticket + 1
+        for sh, sub in zip(self.shards, subs):
+            with sh.cv:
+                while (len(sh.q) >= self.queue_rounds
+                       and sh.exc is None and not sh.stop):
+                    sh.cv.wait(0.5)
+                if sh.exc is None:
+                    sh.q.append((ticket, rec.round_no, sub))
+                    self._depths.append(len(sh.q))
+                    if self._obs is not None:
+                        self._obs.g_wal_queue[sh.idx].set(len(sh.q))
+                    sh.cv.notify_all()
+        self._raise_exc()
+        self._submitted += 1
+        self._last_ticket = ticket
+        return ticket
+
+    def wait_durable(self, ticket: int) -> None:
+        """Block until the published durability watermark covers
+        `ticket` (every record submitted at or before it is fsynced on
+        every stream). The ack-gating half of the crash-ordering
+        invariant."""
+        if ticket <= self._durable:   # racy read is safe: monotonic
+            return
+        with self._wm:
+            while self._durable < ticket:
+                if any(sh.exc is not None for sh in self.shards):
+                    break
+                self._wm.wait(0.2)
+        self._raise_exc()
+
+    def flush(self) -> None:
+        """Barrier: every submitted record durable."""
+        self.wait_durable(self._last_ticket)
+
+    def append_sync(self, rec: RoundRecord) -> None:
+        """Submit + wait: durable when this returns (the old inline
+        EngineWAL.append contract, used by the synchronous paths — admin
+        surgery, conf rounds, pipeline-off mode)."""
+        self.wait_durable(self.submit(rec))
+
+    def _raise_exc(self) -> None:
+        # sh.exc stays set: a failed writer shard is terminally failed
+        # (never respawned — a retry would re-append around a hole), so
+        # every later seam re-raises.
+        for sh in self.shards:
+            if sh.exc is not None:
+                raise sh.exc
+
+    def close(self) -> None:
+        """Drain queues (final group commit per stream), stop the writer
+        threads, close the streams. Idempotent; swallows nothing — a
+        failed shard's error stays set and the next seam raises it."""
+        for sh in self.shards:
+            with sh.cv:
+                sh.stop = True
+                sh.cv.notify_all()
+        for sh in self.shards:
+            if sh.thread is not None:
+                sh.thread.join(timeout=10)
+        for sh in self.shards:
+            sh.wal.close()
+        self.root.close()
+        self._closed = True
+
+    # -- read side ----------------------------------------------------------
+
+    def replay(self, after_round: int = -1) -> Iterator[RoundRecord]:
+        """Yield whole records with round_no > after_round, merged across
+        streams in round order, up to the consistent durable boundary.
+        Positions every stream's appender; physically cuts records
+        beyond the boundary (see module docstring)."""
+        if len(self.shards) == 1:
+            yield from self.root.replay(after_round)
+            return
+        root_recs = list(self.root.replay(after_round))
+        per: List[List[RoundRecord]] = []
+        for sh in self.shards:
+            per.append(list(sh.wal.replay(after_round)))
+        # A stream with no surviving records is complete through the
+        # checkpoint round (checkpoints flush the writer first and purge
+        # only covered segments) — never through less.
+        tails = [max(sh.wal.last_round, after_round) for sh in self.shards]
+        boundary = min(tails)
+        for sh in self.shards:
+            if sh.wal.last_round > boundary:
+                sh.wal.cut_after(boundary)
+        recs = root_recs + [r for rl in per for r in rl
+                            if r.round_no <= boundary]
+        recs.sort(key=lambda r: r.round_no)
+        yield from recs
+
+    def load_checkpoint(self) -> Tuple[int, Optional[dict]]:
+        return self.root.load_checkpoint()
+
+    def save_checkpoint(self, round_no: int, state: dict) -> None:
+        """Flush the pipeline (checkpoint state must not lead the log —
+        a crash right after the checkpoint lands must find every round
+        it covers on disk), persist via the root stream, then purge all
+        streams against the same fallback round."""
+        self.flush()
+        fallback = self.root.save_checkpoint(round_no, state)
+        if self.shards[0].wal is not self.root:
+            for sh in self.shards:
+                sh.wal.purge_segments(fallback)
+
+    # -- introspection ------------------------------------------------------
+
+    def stats(self) -> Dict[str, object]:
+        """Rolling writer-compartment profile for bench.py: fsync
+        latency percentiles (per group commit, measured IN the writer
+        thread), group-commit batch sizes, and the submit-side queue
+        depth the round loop observed."""
+        fs = [v for sh in self.shards for v in sh.fsync_ms]
+        bs = [v for sh in self.shards for v in sh.batch_sizes]
+        dep = list(self._depths)
+
+        def pct(a, q):
+            return round(float(np.percentile(a, q)), 3) if a else None
+
+        return {
+            "wal_shards": len(self.shards),
+            "wal_rounds_submitted": self._submitted,
+            "wal_group_commits": sum(sh.fsyncs for sh in self.shards),
+            "wal_fsync_p50_ms": pct(fs, 50),
+            "wal_fsync_p99_ms": pct(fs, 99),
+            "wal_group_commit_mean": (round(sum(bs) / len(bs), 2)
+                                      if bs else None),
+            "wal_group_commit_max": (max(bs) if bs else None),
+            "wal_queue_depth_p50": pct(dep, 50),
+            "wal_queue_depth_max": (max(dep) if dep else None),
+        }

@@ -1,0 +1,34 @@
+import os as _os
+
+from etcd_tpu_torch.store.event import (Event, EventHistory, NodeExtern, GET, CREATE,
+                                  SET, UPDATE, DELETE, COMPARE_AND_SWAP,
+                                  COMPARE_AND_DELETE, EXPIRE)
+from etcd_tpu_torch.store.store import Store
+from etcd_tpu_torch.store.watcher import Watcher, WatcherHub
+
+try:
+    if _os.environ.get("ETCD_TPU_PYSTORE") == "1":
+        raise ImportError("forced Python store")
+    from etcd_tpu_torch.store.native_store import NativeStore
+    HAVE_NATIVE_STORE = True
+except ImportError:
+    NativeStore = None  # type: ignore[assignment,misc]
+    HAVE_NATIVE_STORE = False
+
+
+def new_store(history_capacity=None, clock=None, namespaces=()):
+    """Store factory: the C-core NativeStore when `./build` has compiled
+    it (the engine apply hot path — see native_store.py), else the pure
+    Python reference implementation. ETCD_TPU_PYSTORE=1 forces Python."""
+    import time
+
+    from etcd_tpu_torch.store import event as _ev
+    cls = NativeStore if HAVE_NATIVE_STORE else Store
+    return cls(history_capacity or _ev.DEFAULT_HISTORY_CAPACITY,
+               clock or time.time, namespaces=namespaces)
+
+
+__all__ = ["Store", "NativeStore", "HAVE_NATIVE_STORE", "new_store", "Event",
+           "EventHistory", "NodeExtern", "Watcher", "WatcherHub", "GET",
+           "CREATE", "SET", "UPDATE", "DELETE", "COMPARE_AND_SWAP",
+           "COMPARE_AND_DELETE", "EXPIRE"]

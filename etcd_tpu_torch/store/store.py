@@ -1,0 +1,558 @@
+"""The v2 state machine: a hierarchical, TTL-aware, watchable key tree.
+
+Behavioral equivalent of reference store/store.go:66-677 (+ ttl_key_heap.go,
+stats.go): Get/Set/Create/CreateInOrder/Update/CompareAndSwap/Delete/
+CompareAndDelete/Watch, min-heap TTL expiry driven by the leader's SYNC
+command, per-op stats counters, and whole-tree JSON Save/Recovery/Clone for
+snapshots. Applied commands are deterministic: expiry uses absolute
+timestamps carried in the replicated request, never local wall-clock, so
+every replica transitions identically.
+"""
+from __future__ import annotations
+
+import heapq
+import json
+import posixpath
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
+
+from etcd_tpu_torch import errors
+from etcd_tpu_torch.store import event as ev
+from etcd_tpu_torch.store.event import Event, NodeExtern
+from etcd_tpu_torch.store.node import Node, is_hidden_name
+from etcd_tpu_torch.store.watcher import Watcher, WatcherHub
+
+
+def normalize(p: str) -> str:
+    p = posixpath.normpath("/" + (p or ""))
+    # POSIX normpath preserves a leading "//" as special; collapse it.
+    if p.startswith("//"):
+        p = p[1:]
+    return p
+
+
+class TtlKeyHeap:
+    """Min-heap of nodes by expire time (reference store/ttl_key_heap.go).
+    Entries are invalidated lazily: a (time, path) pair is stale if the
+    node at that path no longer exists or has a different expire time."""
+
+    def __init__(self) -> None:
+        self._heap: List[Tuple[float, str]] = []
+
+    def push(self, n: Node) -> None:
+        if n.expire_time is not None:
+            heapq.heappush(self._heap, (n.expire_time, n.path))
+
+    def top(self, resolve: Callable[[str], Optional[Node]]
+            ) -> Optional[Node]:
+        while self._heap:
+            t, path = self._heap[0]
+            n = resolve(path)
+            if n is None or n.expire_time != t:
+                heapq.heappop(self._heap)  # stale
+                continue
+            return n
+        return None
+
+    def pop(self) -> None:
+        if self._heap:
+            heapq.heappop(self._heap)
+
+
+class Stats:
+    """Mutation/read counters (reference store/stats.go JSON field names)."""
+
+    FIELDS = ("getsSuccess", "getsFail", "setsSuccess", "setsFail",
+              "createSuccess", "createFail", "updateSuccess", "updateFail",
+              "deleteSuccess", "deleteFail",
+              "compareAndSwapSuccess", "compareAndSwapFail",
+              "compareAndDeleteSuccess", "compareAndDeleteFail",
+              "expireCount", "watchers")
+
+    def __init__(self) -> None:
+        for f in self.FIELDS:
+            setattr(self, f, 0)
+
+    def inc(self, field: str) -> None:
+        setattr(self, field, getattr(self, field) + 1)
+
+    def to_dict(self) -> dict:
+        return {f: getattr(self, f) for f in self.FIELDS}
+
+    def clone(self) -> "Stats":
+        s = Stats()
+        for f in self.FIELDS:
+            setattr(s, f, getattr(self, f))
+        return s
+
+
+class Store:
+    """One consistent v2 keyspace. Thread-safe: the apply loop mutates while
+    HTTP handler threads read/watch (reference worldLock RWMutex)."""
+
+    def __init__(self, history_capacity: int = ev.DEFAULT_HISTORY_CAPACITY,
+                 clock: Callable[[], float] = time.time,
+                 namespaces: tuple = ()) -> None:
+        """namespaces: permanent top-level dirs pre-created at boot and
+        write-protected along with "/" (reference store.go:85-96 newStore —
+        the server passes "/0" and "/1")."""
+        self._lock = threading.RLock()
+        self.clock = clock
+        self.root = Node("/", 0, 0, None, is_dir=True)
+        self.current_index = 0
+        self.watcher_hub = WatcherHub(history_capacity)
+        self.ttl_heap = TtlKeyHeap()
+        self.stats = Stats()
+        self.namespaces = tuple(namespaces)
+        self._readonly = frozenset(self.namespaces) | {"/"}
+        for ns in self.namespaces:
+            n = Node(ns, 0, 0, self.root, is_dir=True)
+            self.root.children[ns.lstrip("/")] = n
+
+    # -- reads ---------------------------------------------------------------
+
+    def get(self, node_path: str, recursive: bool = False,
+            want_sorted: bool = False) -> Event:
+        node_path = normalize(node_path)
+        with self._lock:
+            try:
+                n = self._walk(node_path)
+            except errors.EtcdError:
+                self.stats.inc("getsFail")
+                raise
+            e = Event(ev.GET, node=n.as_extern(self.clock(), recursive,
+                                               want_sorted),
+                      etcd_index=self.current_index)
+            self.stats.inc("getsSuccess")
+            return e
+
+    def watch(self, key: str, recursive: bool = False, stream: bool = False,
+              since_index: int = 0) -> Watcher:
+        key = normalize(key)
+        with self._lock:
+            w = self.watcher_hub.watch(key, recursive, stream, since_index,
+                                       self.current_index)
+            self.stats.watchers = self.watcher_hub.count
+            return w
+
+    # -- mutations -----------------------------------------------------------
+
+    def create(self, node_path: str, is_dir: bool = False,
+               value: str = "", unique: bool = False,
+               expire_time: Optional[float] = None) -> Event:
+        """Create a new node; fails with 105 if it exists (reference
+        store.go:120-150). unique=True appends a zero-padded in-order key
+        named by the creation index (reference CreateInOrder)."""
+        with self._lock:
+            try:
+                e = self._internal_create(node_path, is_dir, value, unique,
+                                          replace=False,
+                                          action=ev.CREATE,
+                                          expire_time=expire_time)
+                self.stats.inc("createSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("createFail")
+                raise
+
+    def set(self, node_path: str, is_dir: bool = False, value: str = "",
+            expire_time: Optional[float] = None) -> Event:
+        """Create-or-replace (reference store.go:152-206): replacing a file
+        returns prevNode.
+
+        This is the apply loop's hottest store op (every engine PUT lands
+        here), so it is fused into ONE tree traversal with an in-place
+        node rewrite on the file-replaces-file path — semantically
+        identical to the reference's remove-then-create (createdIndex
+        resets), without the detach/alloc/attach churn."""
+        with self._lock:
+            try:
+                path = normalize(node_path)
+                if path in self._readonly:
+                    raise errors.EtcdError(errors.ECODE_ROOT_RONLY,
+                                           cause="/",
+                                           index=self.current_index)
+                next_index = self.current_index + 1
+                dirname, name = posixpath.split(path)
+                parent = self._make_dirs(dirname, next_index)
+                existing = parent.children.get(name)
+                now = self.clock()
+                prev_ex = None
+                if existing is not None:
+                    if existing.is_dir:
+                        # set over a dir is not allowed (reference 102) —
+                        # with OR without dir=True.
+                        raise errors.EtcdError(errors.ECODE_NOT_FILE,
+                                               cause=path,
+                                               index=self.current_index)
+                    prev_ex = existing.as_extern(
+                        now, materialize_children=False)
+                if existing is not None and not is_dir:
+                    # In-place replace (the hot path): a SET is a brand-new
+                    # node in reference semantics, so BOTH indices move.
+                    n = existing
+                    n.value = value
+                    n.created_index = n.modified_index = next_index
+                    n.expire_time = expire_time
+                else:
+                    if existing is not None:
+                        existing.remove(False, False, None)
+                    n = Node(path, next_index, next_index, parent,
+                             value=None if is_dir else value, is_dir=is_dir,
+                             expire_time=expire_time)
+                    parent.add(n)
+                self.ttl_heap.push(n)
+                self.current_index = next_index
+                e = Event(ev.SET,
+                          node=n.as_extern(now,
+                                           materialize_children=False),
+                          prev_node=prev_ex, etcd_index=next_index)
+                self.watcher_hub.notify(e)
+                self.stats.inc("setsSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("setsFail")
+                raise
+
+    def set_applied(self, node_path: str, value: str,
+                    expire_time: Optional[float],
+                    need_event: bool) -> Optional[Event]:
+        """PUT-set on the engine apply loop. The NativeStore skips Event
+        materialization when nobody consumes it (need_event False and no
+        watchers); the Python reference store is always eager."""
+        return self.set(node_path, value=value, expire_time=expire_time)
+
+    def update(self, node_path: str, value: Optional[str] = None,
+               expire_time: Optional[float] = None,
+               refresh: bool = False) -> Event:
+        """Update an EXISTING node in place: value (files only) and/or TTL;
+        createdIndex is preserved (reference store.go:208-260). With
+        refresh=True only the TTL moves: the stored value is kept and
+        watchers are NOT notified (documented v2 refresh semantics)."""
+        node_path = normalize(node_path)
+        with self._lock:
+            try:
+                if node_path in self._readonly:
+                    raise errors.EtcdError(errors.ECODE_ROOT_RONLY,
+                                           cause="/",
+                                           index=self.current_index)
+                n = self._walk(node_path)
+                now = self.clock()
+                prev_ex = n.as_extern(now, materialize_children=False)
+                next_index = self.current_index + 1
+                if n.is_dir and value:
+                    raise errors.EtcdError(errors.ECODE_NOT_FILE,
+                                           cause=node_path,
+                                           index=self.current_index)
+                if not n.is_dir:
+                    if refresh:
+                        n.modified_index = next_index  # value untouched
+                    else:
+                        n.write(value or "", next_index)
+                else:
+                    n.modified_index = next_index
+                n.expire_time = expire_time
+                self.ttl_heap.push(n)
+                self.current_index = next_index
+                e = Event(ev.UPDATE,
+                          node=n.as_extern(now, materialize_children=False),
+                          prev_node=prev_ex, etcd_index=self.current_index)
+                if not refresh:
+                    self.watcher_hub.notify(e)
+                self.stats.inc("updateSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("updateFail")
+                raise
+
+    def compare_and_swap(self, node_path: str, prev_value: str,
+                         prev_index: int, value: str,
+                         expire_time: Optional[float] = None) -> Event:
+        """Conditional write (reference store.go:262-319): conditions on
+        prevValue and/or prevIndex; 101 on mismatch, 102 on dirs."""
+        node_path = normalize(node_path)
+        with self._lock:
+            try:
+                if node_path in self._readonly:
+                    raise errors.EtcdError(errors.ECODE_ROOT_RONLY, cause="/",
+                                           index=self.current_index)
+                n = self._walk(node_path)
+                if n.is_dir:
+                    raise errors.EtcdError(errors.ECODE_NOT_FILE,
+                                           cause=node_path,
+                                           index=self.current_index)
+                self._check_compare(n, prev_value, prev_index)
+                now = self.clock()
+                prev_ex = n.as_extern(now, materialize_children=False)
+                next_index = self.current_index + 1
+                n.write(value, next_index)
+                n.expire_time = expire_time
+                self.ttl_heap.push(n)
+                self.current_index = next_index
+                e = Event(ev.COMPARE_AND_SWAP,
+                          node=n.as_extern(now, materialize_children=False),
+                          prev_node=prev_ex, etcd_index=self.current_index)
+                self.watcher_hub.notify(e)
+                self.stats.inc("compareAndSwapSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("compareAndSwapFail")
+                raise
+
+    def delete(self, node_path: str, is_dir: bool = False,
+               recursive: bool = False) -> Event:
+        """Remove a node (reference store.go:321-361): dirs need dir=True
+        (recursive implies dir), non-empty dirs need recursive."""
+        node_path = normalize(node_path)
+        with self._lock:
+            try:
+                if node_path in self._readonly:
+                    raise errors.EtcdError(errors.ECODE_ROOT_RONLY, cause="/",
+                                           index=self.current_index)
+                if recursive:
+                    is_dir = True
+                n = self._walk(node_path)
+                now = self.clock()
+                prev_ex = n.as_extern(now, materialize_children=False)
+                next_index = self.current_index + 1
+                node_ex = NodeExtern(key=node_path, dir=n.is_dir,
+                                     created_index=n.created_index,
+                                     modified_index=next_index)
+                e = Event(ev.DELETE, node=node_ex, prev_node=prev_ex)
+                callback = (lambda path:
+                            self.watcher_hub.notify_with_path(e, path, True))
+                n.remove(is_dir, recursive, callback)
+                self.current_index = next_index
+                e.etcd_index = self.current_index
+                self.watcher_hub.notify(e)
+                self.stats.inc("deleteSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("deleteFail")
+                raise
+
+    def compare_and_delete(self, node_path: str, prev_value: str,
+                           prev_index: int) -> Event:
+        node_path = normalize(node_path)
+        with self._lock:
+            try:
+                n = self._walk(node_path)
+                if n.is_dir:
+                    raise errors.EtcdError(errors.ECODE_NOT_FILE,
+                                           cause=node_path,
+                                           index=self.current_index)
+                self._check_compare(n, prev_value, prev_index)
+                now = self.clock()
+                prev_ex = n.as_extern(now, materialize_children=False)
+                next_index = self.current_index + 1
+                node_ex = NodeExtern(key=node_path,
+                                     created_index=n.created_index,
+                                     modified_index=next_index)
+                e = Event(ev.COMPARE_AND_DELETE, node=node_ex,
+                          prev_node=prev_ex)
+                n.remove(False, False, None)
+                self.current_index = next_index
+                e.etcd_index = self.current_index
+                self.watcher_hub.notify(e)
+                self.stats.inc("compareAndDeleteSuccess")
+                return e
+            except errors.EtcdError:
+                self.stats.inc("compareAndDeleteFail")
+                raise
+
+    def delete_expired_keys(self, cutoff: float) -> List[Event]:
+        """Pop and delete every node expired at `cutoff` — invoked when a
+        replicated SYNC command applies, so all replicas expire identically
+        (reference store.go DeleteExpiredKeys + server SYNC path
+        etcdserver/server.go:667-681,813-815)."""
+        out: List[Event] = []
+        with self._lock:
+            while True:
+                n = self.ttl_heap.top(self._resolve)
+                if n is None or n.expire_time > cutoff:
+                    break
+                self.ttl_heap.pop()
+                self.current_index += 1
+                prev_ex = n.as_extern(cutoff, materialize_children=False)
+                node_ex = NodeExtern(key=n.path, dir=n.is_dir,
+                                     created_index=n.created_index,
+                                     modified_index=self.current_index)
+                e = Event(ev.EXPIRE, node=node_ex, prev_node=prev_ex,
+                          etcd_index=self.current_index)
+                callback = (lambda path:
+                            self.watcher_hub.notify_with_path(e, path, True))
+                n.remove(True, True, callback)
+                self.watcher_hub.notify(e)
+                self.stats.inc("expireCount")
+                out.append(e)
+        return out
+
+    # -- persistence ---------------------------------------------------------
+
+    def save(self) -> bytes:
+        """Whole-tree JSON for snapshots (reference store.go:628-644)."""
+        with self._lock:
+            return json.dumps({
+                "version": 2,
+                "currentIndex": self.current_index,
+                "root": self.root.to_json(),
+                "stats": self.stats.to_dict(),
+            }).encode()
+
+    def clone(self) -> "Store":
+        """Deep copy for async snapshot marshal (reference store.go:646)."""
+        with self._lock:
+            s = Store(self.watcher_hub.event_history.capacity, self.clock,
+                      namespaces=self.namespaces)
+            s.root = self.root.clone(None)
+            s.current_index = self.current_index
+            s.stats = self.stats.clone()
+            stack = [s.root]
+            while stack:
+                n = stack.pop()
+                s.ttl_heap.push(n)
+                if n.is_dir:
+                    stack.extend(n.children.values())
+            return s
+
+    def recovery(self, data: bytes) -> None:
+        """Replace state from a snapshot; live watchers are cleared
+        (reference store.go:662-677, watcher clear per ECODE 400)."""
+        d = json.loads(data.decode())
+        with self._lock:
+            self.root = Node.from_json(d["root"], None)
+            self.current_index = d["currentIndex"]
+            self.stats = Stats()
+            for k, v in d.get("stats", {}).items():
+                if k in Stats.FIELDS:
+                    setattr(self.stats, k, v)
+            self.ttl_heap = TtlKeyHeap()
+            stack = [self.root]
+            while stack:
+                n = stack.pop()
+                self.ttl_heap.push(n)
+                if n.is_dir:
+                    stack.extend(n.children.values())
+            self.watcher_hub.clear()
+
+    def has_ttl_keys(self) -> bool:
+        """True if any node may expire — gates the leader's SYNC proposals."""
+        with self._lock:
+            return self.ttl_heap.top(self._resolve) is not None
+
+    def next_expiration(self) -> Optional[float]:
+        """Earliest live expire time, or None. The multi-tenant engine
+        stages a SYNC only for tenants with a DUE expiry (the reference
+        proposes SYNC unconditionally on a 500ms ticker,
+        etcdserver/server.go:667-681 — per-cluster that's one no-op entry,
+        across 100k tenant groups it would be 100k)."""
+        with self._lock:
+            n = self.ttl_heap.top(self._resolve)
+            return None if n is None else n.expire_time
+
+    def json_stats(self) -> dict:
+        with self._lock:
+            self.stats.watchers = self.watcher_hub.count
+            return self.stats.to_dict()
+
+    # -- internals -----------------------------------------------------------
+
+    def _resolve(self, path: str) -> Optional[Node]:
+        try:
+            return self._walk(path)
+        except errors.EtcdError:
+            return None
+
+    def _walk(self, node_path: str) -> Node:
+        """Resolve an existing node or raise 100 (reference internalGet)."""
+        parts = [p for p in normalize(node_path).split("/") if p]
+        cur = self.root
+        for p in parts:
+            if not cur.is_dir:
+                raise errors.EtcdError(errors.ECODE_KEY_NOT_FOUND,
+                                       cause=node_path,
+                                       index=self.current_index)
+            nxt = cur.children.get(p)
+            if nxt is None:
+                raise errors.EtcdError(errors.ECODE_KEY_NOT_FOUND,
+                                       cause=node_path,
+                                       index=self.current_index)
+            cur = nxt
+        return cur
+
+    def _check_compare(self, n: Node, prev_value: str,
+                       prev_index: int) -> None:
+        """Both given conditions must hold (reference node Compare)."""
+        value_ok = (not prev_value) or (n.value == prev_value)
+        index_ok = (prev_index == 0) or (n.modified_index == prev_index)
+        if value_ok and index_ok:
+            return
+        # Only the failing clause(s) appear (reference getCompareFailCause,
+        # store/store.go:196-206): index-only, value-only, or both.
+        if value_ok:
+            cause = f"[{prev_index} != {n.modified_index}]"
+        elif index_ok:
+            cause = f"[{prev_value} != {n.value or ''}]"
+        else:
+            cause = (f"[{prev_value} != {n.value or ''}] "
+                     f"[{prev_index} != {n.modified_index}]")
+        raise errors.EtcdError(errors.ECODE_TEST_FAILED, cause=cause,
+                               index=self.current_index)
+
+    def _internal_create(self, node_path: str, is_dir: bool, value: str,
+                         unique: bool, replace: bool, action: str,
+                         expire_time: Optional[float] = None) -> Event:
+        next_index = self.current_index + 1
+        if unique:
+            node_path = posixpath.join(normalize(node_path),
+                                       f"{next_index:020d}")
+        node_path = normalize(node_path)
+        if node_path in self._readonly:
+            raise errors.EtcdError(errors.ECODE_ROOT_RONLY, cause="/",
+                                   index=self.current_index)
+        dirname, name = posixpath.split(node_path)
+        parent = self._make_dirs(dirname, next_index)
+        existing = parent.children.get(name)
+        prev_ex = None
+        if existing is not None:
+            if not replace:
+                raise errors.EtcdError(errors.ECODE_NODE_EXIST,
+                                       cause=node_path,
+                                       index=self.current_index)
+            if existing.is_dir:
+                # set over a dir is not allowed (reference 102).
+                raise errors.EtcdError(errors.ECODE_NOT_FILE,
+                                       cause=node_path,
+                                       index=self.current_index)
+            existing.remove(False, False, None)
+        n = Node(node_path, next_index, next_index, parent,
+                 value=None if is_dir else value, is_dir=is_dir,
+                 expire_time=expire_time)
+        parent.add(n)
+        self.ttl_heap.push(n)
+        self.current_index = next_index
+        e = Event(action,
+                  node=n.as_extern(self.clock(), materialize_children=False),
+                  etcd_index=self.current_index)
+        self.watcher_hub.notify(e)
+        return e
+
+    def _make_dirs(self, dirname: str, index: int) -> Node:
+        """Walk to `dirname`, creating missing intermediate dirs (reference
+        walk with checkDir): an existing FILE on the path is 104 NotDir.
+        `dirname` must already be normalized (both callers split a
+        normalized path)."""
+        parts = [p for p in dirname.split("/") if p]
+        cur = self.root
+        for p in parts:
+            nxt = cur.children.get(p)
+            if nxt is None:
+                nxt = Node(posixpath.join(cur.path, p), index, index, cur,
+                           is_dir=True)
+                cur.children[p] = nxt
+            elif not nxt.is_dir:
+                raise errors.EtcdError(errors.ECODE_NOT_DIR, cause=nxt.path,
+                                       index=self.current_index)
+            cur = nxt
+        return cur

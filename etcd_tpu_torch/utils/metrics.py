@@ -1,0 +1,439 @@
+"""Minimal Prometheus-style metrics registry.
+
+Behavioral equivalent of the reference's vendored prometheus client as used
+by etcdserver/metrics.go, wal/metrics.go, snap/metrics.go and
+rafthttp/metrics.go: counters, gauges, and summaries (count/sum + live
+quantiles over a sliding window) rendered in the Prometheus text exposition
+format at /metrics. Pure stdlib; thread-safe.
+"""
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+from collections import deque
+from typing import Dict, List, Optional, Sequence, Tuple
+
+
+class _Metric:
+    kind = "untyped"
+
+    def __init__(self, name: str, help_: str,
+                 registry: Optional["Registry"] = None) -> None:
+        self.name = name
+        self.help = help_
+        self._lock = threading.Lock()
+        (registry or REGISTRY).register(self)
+
+    def samples(self) -> List[Tuple[str, Dict[str, str], float]]:
+        raise NotImplementedError
+
+
+class _NullRegistry:
+    """Sentinel registry for child metrics a labeled parent exposes itself."""
+
+    def register(self, m: "_Metric") -> None:
+        pass
+
+
+UNREGISTERED = _NullRegistry()
+
+
+class Counter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name: str, help_: str, registry=None) -> None:
+        self._v = 0.0
+        super().__init__(name, help_, registry)
+
+    def inc(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._v += delta
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+    def samples(self):
+        return [(self.name, {}, self.value)]
+
+
+class Gauge(_Metric):
+    kind = "gauge"
+
+    def __init__(self, name: str, help_: str, registry=None) -> None:
+        self._v = 0.0
+        super().__init__(name, help_, registry)
+
+    def set(self, v: float) -> None:
+        with self._lock:
+            self._v = v
+
+    def inc(self, delta: float = 1.0) -> None:
+        with self._lock:
+            self._v += delta
+
+    def dec(self, delta: float = 1.0) -> None:
+        self.inc(-delta)
+
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._v
+
+    def samples(self):
+        return [(self.name, {}, self.value)]
+
+
+class Histogram(_Metric):
+    """A bucketed Prometheus histogram (`*_bucket{le=...}` + sum/count).
+
+    Lock-light by design: observe() is two integer adds and a float add
+    on thread-confined-or-GIL-serialized cells — no mutex on the hot
+    path (the engine's round loop and writer/applier workers observe
+    from their own threads at pipeline rate; the standard client's
+    per-observation mutex is exactly the overhead the instrumentation
+    A/B gate exists to forbid). Under CPython's GIL a concurrent
+    increment can at worst lose single counts (never tear, never go
+    backwards), which is inside monitoring noise; exposition derives
+    `_count` from the bucket cells themselves so a scrape is always
+    internally consistent (cumulative buckets monotone, +Inf == count).
+    """
+
+    kind = "histogram"
+
+    # The prometheus client's DefBuckets, in seconds — fits both the
+    # sub-ms engine phases and multi-ms fsyncs.
+    DEFAULT = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+               0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+    def __init__(self, name: str, help_: str,
+                 buckets: Sequence[float] = DEFAULT,
+                 registry=None) -> None:
+        self.buckets = tuple(sorted(buckets))
+        self._counts = [0] * (len(self.buckets) + 1)   # +Inf tail cell
+        self._sum = 0.0
+        super().__init__(name, help_, registry)
+
+    def observe(self, v: float) -> None:
+        # bisect over a small tuple beats a Python loop; no lock (see
+        # class docstring).
+        i = bisect.bisect_left(self.buckets, v)
+        self._counts[i] += 1
+        self._sum += v
+
+    @property
+    def count(self) -> int:
+        return sum(self._counts)
+
+    @property
+    def sum(self) -> float:
+        return self._sum
+
+    def samples(self):
+        counts = list(self._counts)      # one snapshot, used throughout
+        out = []
+        cum = 0
+        for b, c in zip(self.buckets, counts):
+            cum += c
+            out.append((self.name + "_bucket", {"le": repr(float(b))}, cum))
+        cum += counts[-1]
+        out.append((self.name + "_bucket", {"le": "+Inf"}, cum))
+        out.append((self.name + "_sum", {}, self._sum))
+        out.append((self.name + "_count", {}, cum))
+        return out
+
+
+class LabeledHistogram(_Metric):
+    """A histogram vector keyed by one or more labels (e.g. the engine's
+    per-compartment shard index, reference wal/snap metrics.go shape)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str],
+                 buckets: Sequence[float] = Histogram.DEFAULT,
+                 registry=None) -> None:
+        self.label_names = tuple(label_names)
+        self._buckets = buckets
+        self._children: Dict[Tuple[str, ...], Histogram] = {}
+        super().__init__(name, help_, registry)
+
+    def labels(self, *values) -> Histogram:
+        key = tuple(str(v) for v in values)
+        h = self._children.get(key)
+        if h is None:
+            with self._lock:
+                h = self._children.get(key)
+                if h is None:
+                    h = Histogram(self.name, self.help, self._buckets,
+                                  registry=UNREGISTERED)
+                    self._children[key] = h
+        return h
+
+    def samples(self):
+        out = []
+        with self._lock:
+            items = sorted(self._children.items())
+        for key, child in items:
+            lbls = dict(zip(self.label_names, key))
+            for name, extra, v in child.samples():
+                out.append((name, {**lbls, **extra}, v))
+        return out
+
+
+class LabeledGauge(_Metric):
+    """A gauge vector keyed by one or more labels (per-shard queue depths
+    and watermarks)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str],
+                 registry=None) -> None:
+        self.label_names = tuple(label_names)
+        self._children: Dict[Tuple[str, ...], Gauge] = {}
+        super().__init__(name, help_, registry)
+
+    def labels(self, *values) -> Gauge:
+        key = tuple(str(v) for v in values)
+        g = self._children.get(key)
+        if g is None:
+            with self._lock:
+                g = self._children.get(key)
+                if g is None:
+                    g = Gauge(self.name, self.help, registry=UNREGISTERED)
+                    self._children[key] = g
+        return g
+
+    def samples(self):
+        out = []
+        with self._lock:
+            items = sorted(self._children.items())
+        for key, child in items:
+            lbls = dict(zip(self.label_names, key))
+            for name, extra, v in child.samples():
+                out.append((name, {**lbls, **extra}, v))
+        return out
+
+
+class Summary(_Metric):
+    """count/sum plus 0.5/0.9/0.99 quantiles over the last `window`
+    observations (the prometheus client's default objectives)."""
+
+    kind = "summary"
+    QUANTILES = (0.5, 0.9, 0.99)
+
+    def __init__(self, name: str, help_: str, window: int = 1024,
+                 registry=None) -> None:
+        self._count = 0
+        self._sum = 0.0
+        self._window: deque = deque(maxlen=window)
+        super().__init__(name, help_, registry)
+
+    def observe(self, v: float) -> None:
+        with self._lock:
+            self._count += 1
+            self._sum += v
+            self._window.append(v)
+
+    def samples(self):
+        with self._lock:
+            vals = sorted(self._window)
+            out = []
+            for q in self.QUANTILES:
+                if vals:
+                    idx = min(len(vals) - 1, int(math.ceil(q * len(vals))) - 1)
+                    out.append((self.name, {"quantile": str(q)},
+                                vals[max(idx, 0)]))
+                else:
+                    out.append((self.name, {"quantile": str(q)},
+                                float("nan")))
+            out.append((self.name + "_sum", {}, self._sum))
+            out.append((self.name + "_count", {}, self._count))
+            return out
+
+
+class LabeledSummary(_Metric):
+    """A summary vector keyed by one label (e.g. sendingType or
+    remoteID/sendingType, reference rafthttp/metrics.go)."""
+
+    kind = "summary"
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str],
+                 window: int = 1024, registry=None) -> None:
+        self.label_names = tuple(label_names)
+        self._window = window
+        self._children: Dict[Tuple[str, ...], Summary] = {}
+        super().__init__(name, help_, registry)
+
+    def labels(self, *values: str) -> Summary:
+        key = tuple(values)
+        with self._lock:
+            s = self._children.get(key)
+            if s is None:
+                s = Summary(self.name, self.help, self._window,
+                            registry=UNREGISTERED)
+                self._children[key] = s
+            return s
+
+    def samples(self):
+        out = []
+        with self._lock:
+            items = list(self._children.items())
+        for key, child in items:
+            lbls = dict(zip(self.label_names, key))
+            for name, extra, v in child.samples():
+                out.append((name, {**lbls, **extra}, v))
+        return out
+
+
+class LabeledCounter(_Metric):
+    kind = "counter"
+
+    def __init__(self, name: str, help_: str, label_names: Sequence[str],
+                 registry=None) -> None:
+        self.label_names = tuple(label_names)
+        self._children: Dict[Tuple[str, ...], float] = {}
+        super().__init__(name, help_, registry)
+
+    def labels(self, *values: str) -> "_LabeledCounterChild":
+        return _LabeledCounterChild(self, tuple(values))
+
+    def _inc(self, key: Tuple[str, ...], delta: float) -> None:
+        with self._lock:
+            self._children[key] = self._children.get(key, 0.0) + delta
+
+    def samples(self):
+        with self._lock:
+            return [(self.name, dict(zip(self.label_names, key)), v)
+                    for key, v in self._children.items()]
+
+
+class _LabeledCounterChild:
+    def __init__(self, parent: LabeledCounter, key: Tuple[str, ...]) -> None:
+        self._p = parent
+        self._k = key
+
+    def inc(self, delta: float = 1.0) -> None:
+        self._p._inc(self._k, delta)
+
+
+class Registry:
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, _Metric] = {}
+
+    def register(self, m: _Metric) -> None:
+        with self._lock:
+            # Idempotent by name so module reimports/multiple members in one
+            # process share the series (the reference's MustRegister panics;
+            # a shared-process test harness needs tolerance instead).
+            self._metrics.setdefault(m.name, m)
+
+    def get(self, name: str) -> Optional[_Metric]:
+        with self._lock:
+            return self._metrics.get(name)
+
+    @staticmethod
+    def _escape_label(val: str) -> str:
+        """Text exposition format: label values escape backslash,
+        double-quote, and line feed (in that order — backslash first so
+        the escapes themselves survive)."""
+        return (str(val).replace("\\", "\\\\").replace('"', '\\"')
+                .replace("\n", "\\n"))
+
+    @staticmethod
+    def _series_name(name: str, labels: Dict[str, str]) -> str:
+        if not labels:
+            return name
+        lbl = ",".join(f'{k}="{Registry._escape_label(val)}"'
+                       for k, val in sorted(labels.items()))
+        return f"{name}{{{lbl}}}"
+
+    def expose(self) -> str:
+        """Prometheus text exposition format."""
+        lines: List[str] = []
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        for m in metrics:
+            # HELP text escapes backslash and line feed (no quote escape).
+            help_ = m.help.replace("\\", "\\\\").replace("\n", "\\n")
+            lines.append(f"# HELP {m.name} {help_}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+            for name, labels, v in m.samples():
+                series = self._series_name(name, labels)
+                if isinstance(v, float) and math.isnan(v):
+                    lines.append(f"{series} NaN")
+                else:
+                    lines.append(f"{series} {v}")
+        return "\n".join(lines) + "\n"
+
+    def snapshot(self) -> Dict[str, float]:
+        """Flat {series-with-labels: value} map of every finite sample.
+
+        The bench uses before/after snapshots of this to cross-check its
+        own BENCH columns against what /metrics would have reported.
+        """
+        out: Dict[str, float] = {}
+        with self._lock:
+            metrics = list(self._metrics.values())
+        for m in metrics:
+            for name, labels, v in m.samples():
+                if isinstance(v, float) and math.isnan(v):
+                    continue
+                out[self._series_name(name, labels)] = float(v)
+        return out
+
+
+REGISTRY = Registry()
+
+# -- the reference's metric set ----------------------------------------------
+
+# etcdserver/metrics.go
+propose_durations = Summary(
+    "etcd_server_proposal_durations_milliseconds",
+    "The latency distributions of committing proposal.")
+propose_pending = Gauge(
+    "etcd_server_pending_proposal_total",
+    "The total number of pending proposals.")
+propose_failed = Counter(
+    "etcd_server_proposal_failed_total",
+    "The total number of failed proposals.")
+file_descriptors_used = Gauge(
+    "etcd_server_file_descriptors_used_total",
+    "The total number of file descriptors used.")
+
+# wal/metrics.go
+wal_fsync_durations = Summary(
+    "etcd_wal_fsync_durations_microseconds",
+    "The latency distributions of fsync called by wal.")
+wal_last_index_saved = Gauge(
+    "etcd_wal_last_index_saved",
+    "The index of the last entry saved by wal.")
+
+# snap/metrics.go
+snap_save_durations = Summary(
+    "etcd_snapshot_save_total_durations_microseconds",
+    "The total latency distributions of save called by snapshot.")
+
+# rafthttp/metrics.go
+msg_sent_latency = LabeledSummary(
+    "etcd_rafthttp_message_sent_latency_microseconds",
+    "message sent latency distributions.",
+    ("sendingType", "remoteID", "msgType"))
+msg_sent_failed = LabeledCounter(
+    "etcd_rafthttp_message_sent_failed_total",
+    "The total number of failed messages sent.",
+    ("sendingType", "remoteID", "msgType"))
+
+
+def fd_usage() -> Tuple[int, int]:
+    """(used, limit) file descriptors (reference pkg/runtime/fds_linux.go)."""
+    import os
+    import resource
+    try:
+        used = len(os.listdir("/proc/self/fd"))
+    except OSError:
+        used = -1
+    limit = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    return used, limit

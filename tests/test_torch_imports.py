@@ -1,0 +1,97 @@
+"""The port stands alone: etcd_tpu_torch imports torch, never jax and
+nothing of the JAX package; its host modules are the JAX package's,
+verbatim apart from import lines; its entry points default to the card."""
+import ast
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+import pytest
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "etcd_tpu_torch")
+
+VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
+            "utils/fileutil.py", "utils/metrics.py", "native/__init__.py",
+            "store/__init__.py", "store/event.py", "store/node.py",
+            "store/watcher.py", "store/store.py", "server/request.py",
+            "server/obs.py", "server/enginewal.py", "server/walwriter.py"]
+
+_IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
+
+
+def _is_forbidden(name: str) -> bool:
+    return (name == "jax" or name.startswith("jax.")
+            or name == "etcd_tpu" or name.startswith("etcd_tpu."))
+
+
+def test_engine_import_loads_no_jax_and_no_jax_package():
+    code = ("import sys\n"
+            "import etcd_tpu_torch.server.engine, etcd_tpu_torch.ops.kernel\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert "etcd_tpu_torch.server.engine" in out
+    assert "torch" in out
+    assert [m for m in out if _is_forbidden(m)] == []
+
+
+def _py_files():
+    for dirpath, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(dirpath, f)
+
+
+def test_no_source_file_imports_jax_or_the_jax_package():
+    """Static check of every import statement, lazy ones included."""
+    bad = []
+    for path in _py_files():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, ROOT), n) for n in names
+                    if _is_forbidden(n)]
+    assert bad == []
+
+
+@pytest.mark.parametrize("rel", VERBATIM)
+def test_host_module_is_a_verbatim_copy(rel):
+    ours = open(os.path.join(PKG, rel)).read().splitlines()
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    assert len(ours) == len(theirs)
+    for i, (a, b) in enumerate(zip(ours, theirs), 1):
+        if a != b:
+            assert _IMPORT_LINE.sub(r"\1etcd_tpu", a) == b, f"{rel}:{i}"
+
+
+def test_engine_defaults_to_the_card():
+    from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
+    with tempfile.TemporaryDirectory() as d:
+        cfg = EngineConfig(groups=2, peers=3, data_dir=d)
+        assert cfg.device == "cuda"
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default runs there")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            MultiEngine(cfg)
+        # Refused before touching the data dir.
+        assert os.listdir(d) == []
+
+
+def test_state_defaults_to_the_card():
+    from etcd_tpu_torch.ops.state import KernelConfig, init_state
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        init_state(KernelConfig(groups=2, peers=3))
