@@ -7,10 +7,20 @@ Drives the port's serving path at 100,000 groups × 5 peers (W=16, E=4,
 heartbeat_tick=3, hops=3, fsync on) on the card, and fails (nonzero
 exit) if any phase fails:
 
-1. device: the card's name and power limit; builds the CUDA kernels.
-2. kernel vs plain: `ring_resolve` against `ring_resolve_ref` on the card
-   at both of the round's call shapes, exactly equal; CUDA-event times of
-   the kernel, the plain version and one torch.gather, beside the bound.
+1. device: the card's name and power limit; builds the CUDA kernels
+   (one nvcc per build, all started together) and prints ptxas's
+   registers and shared memory for each kernel instantiation.
+2. kernel vs plain: `ring_resolve` against `ring_resolve_ref` on the card,
+   exactly equal, through every instantiation (TE=4, TE=5, generic) at
+   both of the round's call shapes, a ragged row count, trailing shapes
+   (P, E) and (), W=8 and a misaligned idx. At both main-path shapes,
+   over inputs that rotate through 8 copies (so L2 is cold, as in the
+   round): CUDA-event times of the kernel, the plain version and one
+   torch.gather beside the bound; the kernel's device time replayed from
+   a CUDA graph, over the copies and over one input (warm L2); the
+   launch floor (the wrapper's whole path with an empty kernel,
+   `ring_resolve.launch_floor`) in both loops; host µs per call. The A/B
+   of two commits' kernels is `etcd_tpu_torch/ops/ring_resolve_timing.py`.
 3. round: 40 full-width `step_routed_compact` rounds with the kernel and
    with `resolve=ring_resolve_ref`, every output equal after every round;
    30 small rounds on the card and on the CPU, bit-equal.
@@ -44,72 +54,108 @@ def log(phase: str, t0: float, **kv) -> None:
                       **kv}), flush=True)
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Mean device time of fn() over `iters` launches after a warm-up."""
+def bound_ms(ring, idx, last) -> tuple:
+    """(bound ms, bytes, sector bytes): idx and out once, last once, and
+    the distinct ring words that in-window indices touch, over the HBM
+    rate. Sector bytes count each touched ring word as the 32-byte
+    sector it moves in between device memory and L2 (W a multiple of 8,
+    so ring rows are whole sectors): what a cold call must move."""
     import torch
-    for _ in range(3):
-        fn()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
-
-
-def resolve_inputs(rng, trailing):
-    """Random ring/idx/last with indices < 1, negative, below the window
-    and above last, all present."""
-    ring = rng.randint(1, 9, (G, P, W)).astype(np.int32)
-    last = rng.randint(0, 3 * W, (G, P)).astype(np.int32)
-    idx = rng.randint(-2 * W, 3 * W + 2, (G, P) + trailing).astype(np.int32)
-    return ring, idx, last
+    g, p, w = ring.shape
+    flat = idx.reshape(g * p, -1)
+    lst = last.reshape(g * p, 1)
+    valid = (flat >= 1) & (flat > lst - w) & (flat <= lst)
+    touched = torch.zeros(g * p, w, dtype=torch.bool, device=idx.device)
+    rows = torch.arange(g * p, device=idx.device)[:, None].expand_as(flat)
+    touched[rows[valid], torch.remainder(flat, w)[valid].long()] = True
+    streamed = 4 * (2 * idx.numel() + last.numel())
+    nbytes = streamed + 4 * int(touched.sum())
+    sectors = int(touched.view(-1, 8).any(dim=1).sum()) if w % 8 == 0 else 0
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, streamed + 32 * sectors
 
 
 def phase_kernel(dev):
-    """Kernel vs plain at both main-path call shapes; returns the kernel
-    entry of the report (times at the send-assembly shape T=(P,))."""
+    """Kernel vs plain on the card: every instantiation exactly equal to
+    `ring_resolve_ref` (both main-path shapes, a ragged row count, (P, E),
+    (), W=8, a misaligned idx); at both main-path shapes the kernel's,
+    the plain version's and torch.gather's times beside the bound, the
+    launch floor and host µs per call. Returns the kernel entry of the
+    report (times at the send-assembly shape T=(P,))."""
     import torch
-    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    from etcd_tpu_torch.ops import ring_resolve as rr
+    from etcd_tpu_torch.ops.ring_resolve_timing import (
+        cuda_ms, graph_ms, host_us, resolve_inputs, rotating)
     t0 = time.perf_counter()
     rng = np.random.RandomState(SEED)
-    entry = None
+    resolve, ref = rr.ring_resolve, rr.ring_resolve_ref
+    counts0 = dict(resolve.launches_by_variant)
     max_err = 0
-    for label, trailing in (("send_assembly", (P,)), ("conflict_scan", (E,))):
-        ring, idx, last = (torch.from_numpy(a).to(dev)
-                           for a in resolve_inputs(rng, trailing))
-        got = ring_resolve(ring, idx, last)
-        want = ring_resolve_ref(ring, idx, last)
+    cases = (("send_assembly", (P,), G, W), ("conflict_scan", (E,), G, W),
+             ("ragged_rows", (P,), 99_999, W), ("PxE", (P, E), G, W),
+             ("empty_trailing", (), G, W), ("W8", (P,), G, 8),
+             ("misaligned_idx", (E,), G, W))
+    inputs = {}
+    for label, trailing, groups, w in cases:
+        ring, idx, last = (torch.from_numpy(a).to(dev) for a in
+                           resolve_inputs(rng, trailing, groups, w))
+        if label == "misaligned_idx":   # 4 bytes past a 16-byte boundary
+            buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+            buf[1:] = idx.reshape(-1)
+            idx = buf[1:].view(idx.shape)
+        got = resolve(ring, idx, last)
+        want = ref(ring, idx, last)
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         max_err = max(max_err, err)
         if not torch.equal(got, want):
             raise AssertionError(f"ring_resolve != plain at {label}")
-        flat = idx.reshape(G * P, -1)
-        lst = last.reshape(G * P, 1)
-        valid = (flat >= 1) & (flat > lst - W) & (flat <= lst)
-        touched = torch.zeros(G * P, W, dtype=torch.bool, device=dev)
-        rows = torch.arange(G * P, device=dev)[:, None].expand_as(flat)
-        touched[rows[valid], torch.remainder(flat, W)[valid].long()] = True
-        nbytes = 4 * (2 * idx.numel() + last.numel()
-                      + int(touched.sum()))
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        inputs[label] = (ring, idx, last)
+    by_variant = {k: resolve.launches_by_variant[k] - counts0[k]
+                  for k in counts0}
+    if not all(by_variant.values()):
+        raise AssertionError(f"an instantiation was not held against the "
+                             f"plain version: {by_variant}")
+    log("kernel_equal", t0, cases=[c[0] for c in cases], equal=True,
+        max_abs_err=max_err, launches_by_variant=by_variant)
+
+    entry = None
+    for label in ("send_assembly", "conflict_scan"):
+        args = inputs[label]
+        ring, idx, last = args
+        b_ms, nbytes, sector_bytes = bound_ms(ring, idx, last)
         slot = torch.remainder(idx.reshape(G, P, -1), W).long()
-        ms = cuda_ms(lambda: ring_resolve(ring, idx, last))
-        plain_ms = cuda_ms(lambda: ring_resolve_ref(ring, idx, last))
-        library_ms = cuda_ms(lambda: torch.gather(ring, 2, slot))
+        kern = rotating(resolve, args)
+        floor = rotating(rr.launch_floor, args)
+        ms = cuda_ms(kern)
+        dev_ms = graph_ms(kern)
+        warm_ms = graph_ms(lambda: resolve(ring, idx, last))
+        plain_ms = cuda_ms(rotating(ref, args))
+        library_ms = cuda_ms(rotating(
+            lambda r, s: torch.gather(r, 2, s), (ring, slot)))
+        copy_ms = graph_ms(rotating(lambda x, o: o.copy_(x),
+                                    (idx, torch.empty_like(idx))))
+        plan = rr.device_plan(G * P, idx.numel() // (G * P), W, dev.index)
         log("kernel_vs_plain", t0, shape=label, idx_shape=list(idx.shape),
-            equal=True, ms=ms, plain_ms=plain_ms, gather_ms=library_ms,
-            bound_ms=bound_ms, bytes=nbytes)
+            equal=True, ms=ms, graph_ms=dev_ms, graph_ms_one_input=warm_ms,
+            plain_ms=plain_ms, gather_ms=library_ms, copy_idx_graph_ms=copy_ms,
+            bound_ms=b_ms, bytes=nbytes, sector_bytes=sector_bytes,
+            sector_bound_ms=sector_bytes / HBM_BYTES_PER_S * 1e3,
+            share_of_bound=b_ms / ms,
+            graph_share_of_bound=b_ms / dev_ms, plan=plan._asdict())
+        host, host_floor = host_us(kern), host_us(floor)
+        log("launch_floor", t0, shape=label, empty_kernel_ms=cuda_ms(floor),
+            empty_kernel_graph_ms=graph_ms(floor),
+            host_us_per_call=host[0], us_per_call_after_sync=host[1],
+            empty_kernel_host_us_per_call=host_floor[0],
+            empty_like_host_us_per_call=host_us(
+                lambda: torch.empty_like(idx))[0])
         if entry is None:
             entry = {"name": "ring_resolve", "route": "cuda",
                      "source": "etcd_tpu_torch/ops/csrc/ring_resolve.cu",
                      "replaces": "etcd_tpu/ops/pallas_kernels.py:94",
                      "shape": list(idx.shape), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "graph_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms,
                      "bound_by": "bytes", "library_ms": library_ms}
     entry["max_abs_err"] = max_err
     return entry
@@ -242,7 +288,8 @@ def phase_small_card_vs_cpu(dev, groups=64, rounds=30):
 
 def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
     """The serving path through MultiEngine's public entry points.
-    Returns the ring_resolve launches counted across it."""
+    Returns the ring_resolve launches counted across it, in all and by
+    instantiation."""
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
     from etcd_tpu_torch.server.request import Request
@@ -253,6 +300,8 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
     gs = [i * groups // tenants for i in range(tenants)]
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as d:
         ring_resolve.launches = 0       # the main path starts here
+        for k in ring_resolve.launches_by_variant:
+            ring_resolve.launches_by_variant[k] = 0
         eng = MultiEngine(EngineConfig(data_dir=d, **cfg))
         boot_rounds = 0
         for _ in range(12):
@@ -312,12 +361,14 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
         if eng.failed is not None:
             raise eng.failed
         launches = ring_resolve.launches   # the main path ends here
+        by_variant = dict(ring_resolve.launches_by_variant)
         ms = np.array(sorted(lat.values())) * 1e3
         log("engine_serve", t0, acked=len(lat), write_s=t_w,
             acked_writes_per_s=len(lat) / t_w, rounds=rounds_w,
             rounds_per_s=rounds_w / t_w, ack_p50_ms=float(np.percentile(ms, 50)),
             ack_p99_ms=float(np.percentile(ms, 99)), quorum_gets=quorum_gets,
             quorum_get_s=t_q, launches=launches,
+            launches_by_variant=by_variant,
             phase_s={k: round(v, 4) for k, v in eng.phase_s.items()})
         eng2 = MultiEngine(EngineConfig(data_dir=d, **cfg))
         missing = [g for g in gs if eng2.store(g).get(
@@ -326,7 +377,22 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
         if missing:
             raise AssertionError(f"acked writes lost on restart: {missing[:5]}")
         log("engine_restart", t0, read_back=len(gs))
-    return launches
+    return launches, by_variant
+
+
+def ptxas_by_kernel(lines) -> dict:
+    """ptxas's resource line for each compiled entry function."""
+    out, name = {}, None
+    for line in lines:
+        if line.startswith("Compiling entry function"):
+            name = line.split("'")[1]
+            for short in ("ring_resolve_tilesILi4E", "ring_resolve_tilesILi5E",
+                          "ring_resolve_tilesILi0E", "ring_resolve_empty"):
+                if short in name:
+                    name = short.replace("ILi", "<").replace("E", ">")
+        elif line.startswith("Used") and name:
+            out[name] = line
+    return out
 
 
 def main() -> int:
@@ -334,7 +400,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
     from etcd_tpu_torch.ops import cuda_build
+    from etcd_tpu_torch.ops.ring_resolve import stage_shape
     from etcd_tpu_torch.server import engine  # noqa: F401 — fail early
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -346,16 +414,25 @@ def main() -> int:
     print(json.dumps({"python": sys.version.split()[0],
                       "torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
-    cuda_build.build("ring_resolve")
-    log("build", t0, kernels=["ring_resolve"])
+    with ThreadPoolExecutor() as pool:   # one nvcc per build, all at once
+        build = pool.submit(cuda_build.build, "ring_resolve")
+        ptxas = pool.submit(cuda_build.ptxas_report, "ring_resolve").result()
+        build.result()
+    log("build", t0, kernels=["ring_resolve"], ptxas=ptxas_by_kernel(ptxas),
+        smem_by_variant={v: stage_shape(te)[2] for v, te in
+                         (("te4", 4), ("te5", 5), ("generic", P * E))})
 
     entry = phase_kernel(dev)
     phase_round(dev)
     phase_small_card_vs_cpu(dev)
-    launches = phase_engine(dev)
+    launches, by_variant = phase_engine(dev)
     if launches <= 0:
         raise AssertionError("ring_resolve was not launched on the main path")
+    if not (by_variant["te4"] and by_variant["te5"]):
+        raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
+                             f"launched on the main path: {by_variant}")
     entry["launches"] = launches
+    entry["launches_by_variant"] = by_variant
     entry["equal_to_plain"] = True
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` compiles to its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), for `sm_90a`,
 into `<checkout>/.cuda_build/<name>-<hash>/`, keyed by a hash of the
-source and the flags. A failed build raises.
+source and the flags. A failed build raises. `ptxas_report` compiles a
+source once more, apart from the cached library, to read what ptxas
+says of each kernel (registers, shared memory, spills).
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 
@@ -61,3 +64,18 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+def ptxas_report(name: str) -> list:
+    """The `ptxas info` lines of `-Xptxas -v` for `csrc/<name>.cu`, from a
+    build made for this report alone (the cached library keeps its
+    flags)."""
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_ROOT) as d:
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o",
+               os.path.join(d, f"lib{name}.so"), str(CSRC / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    return [line.split(":", 1)[1].strip() for line in res.stderr.splitlines()
+            if line.startswith("ptxas info")]
