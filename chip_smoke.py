@@ -12,8 +12,9 @@ exit) if any phase fails:
    registers and shared memory for each kernel instantiation.
 2. kernel vs plain: `ring_resolve` against `ring_resolve_ref` on the card,
    exactly equal, through every instantiation (TE=4, TE=5, generic) at
-   both of the round's call shapes, a ragged row count, trailing shapes
-   (P, E) and (), W=8 and a misaligned idx. At both main-path shapes,
+   the round's call shapes (idx (G, P, 5), (G, P, 4) and, on the CLI's
+   path, (G, P, 8)), a ragged row count, trailing shapes
+   (P, E) and (), W=8 and a misaligned idx. At those three shapes,
    over inputs that rotate through 8 copies (so L2 is cold, as in the
    round): CUDA-event times of the kernel, the plain version and one
    torch.gather beside the bound; the kernel's device time replayed from
@@ -28,7 +29,19 @@ exit) if any phase fails:
    threads, serves their GETs and 100 quorum GETs, and after a restart
    on the same data dir reads every acked write back. The kernels'
    launch counts are read across this phase (the main path).
-5. one JSON line describing every kernel, then the last line
+5. http_front: the same G, P and window through the CLI's engine mode
+   at its other defaults (max_ents 8, so the conflict scan takes the
+   generic instantiation at idx (100000, 5, 8)), in three legs: in
+   process over real sockets, launch counts read across it (PUT, GET,
+   quorum GET, /batch); `python -m etcd_tpu_torch` with `python -m
+   etcd_tpu_torch.server.ingress` in front (PUTs and a CAS race through
+   the ingress, the server among the card's compute apps, every
+   upstream frame answered); SIGKILL of the server, the same command
+   again, every acked write read back as soon as it serves (local GETs
+   need no re-elected leader), rc 0 on SIGTERM for both. One
+   JSON line per leg: acked writes/s, ack p50/p99, rounds/s, seconds
+   per step.
+6. one JSON line describing every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA device; without one it exits nonzero and prints no result.
@@ -36,15 +49,22 @@ Needs a CUDA device; without one it exits nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import select
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 
 G, P, W, E = 100_000, 5, 16, 4
+CLI_E = 8            # EngineConfig's max_ents, which the CLI leaves as it is
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 SEED = 1234
 
@@ -91,6 +111,7 @@ def phase_kernel(dev):
     counts0 = dict(resolve.launches_by_variant)
     max_err = 0
     cases = (("send_assembly", (P,), G, W), ("conflict_scan", (E,), G, W),
+             ("cli_conflict_scan", (CLI_E,), G, W),
              ("ragged_rows", (P,), 99_999, W), ("PxE", (P, E), G, W),
              ("empty_trailing", (), G, W), ("W8", (P,), G, 8),
              ("misaligned_idx", (E,), G, W))
@@ -119,7 +140,7 @@ def phase_kernel(dev):
         max_abs_err=max_err, launches_by_variant=by_variant)
 
     entry = None
-    for label in ("send_assembly", "conflict_scan"):
+    for label in ("send_assembly", "conflict_scan", "cli_conflict_scan"):
         args = inputs[label]
         ring, idx, last = args
         b_ms, nbytes, sector_bytes = bound_ms(ring, idx, last)
@@ -380,6 +401,338 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100):
     return launches, by_variant
 
 
+FORM = {"Content-Type": "application/x-www-form-urlencoded"}
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+def _http(method, url, body=None, headers=None, timeout=60):
+    """(status, JSON body or None) of one request over a real socket."""
+    r = urllib.request.Request(url, data=body, method=method,
+                               headers=headers or {})
+    try:
+        with urllib.request.urlopen(r, timeout=timeout) as resp:
+            st, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        st, raw = e.code, e.read()
+    return st, (json.loads(raw) if raw else None)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _in_threads(fn, items, n_threads=100, timeout=300):
+    """fn(item) for every item, from n_threads threads; the errors."""
+    errs = []
+
+    def work(chunk):
+        for it in chunk:
+            try:
+                fn(it)
+            except Exception as e:  # noqa: BLE001 — reported below
+                errs.append((it, repr(e)))
+
+    th = [threading.Thread(target=work, args=(items[i::n_threads],))
+          for i in range(n_threads)]
+    for t in th:
+        t.start()
+    for t in th:
+        t.join(timeout=timeout)
+    if any(t.is_alive() for t in th):
+        raise AssertionError(f"{fn.__name__} workers hung")
+    return errs
+
+
+def _put_all(base, gs, val):
+    """PUT /tenants/{g}/v2/keys/smoke for every g from 100 threads;
+    {g: seconds to its ack}."""
+    lat = {}
+
+    def put(g):
+        t1 = time.perf_counter()
+        st, body = _http("PUT", f"{base}/tenants/{g}/v2/keys/smoke",
+                         f"value={val(g)}".encode(), FORM)
+        if st not in (200, 201) or body["node"]["value"] != val(g):
+            raise AssertionError(f"PUT g={g}: {st} {body}")
+        lat[g] = time.perf_counter() - t1
+
+    errs = _in_threads(put, gs)
+    if errs or len(lat) != len(gs):
+        raise AssertionError(f"PUT failures: {errs[:5]}")
+    return lat
+
+
+def _get_all(base, want, quorum=False):
+    """GET every tenant's /smoke from 100 threads, each equal to want[g]."""
+    q = "?quorum=true" if quorum else ""
+
+    def get(g):
+        st, body = _http("GET", f"{base}/tenants/{g}/v2/keys/smoke{q}")
+        if st != 200 or body["node"]["value"] != want[g]:
+            raise AssertionError(f"GET{q} g={g}: {st} {body}")
+
+    errs = _in_threads(get, list(want))
+    if errs:
+        raise AssertionError(f"GET{q} failures: {errs[:5]}")
+
+
+def _wait_status(base, groups=None, proc=None, deadline_s=300.0):
+    """Poll GET /engine/status every 0.5 s (each poll walks every group
+    in Python) until it answers and, given `groups`, every group has a
+    leader."""
+    t_end = time.monotonic() + deadline_s
+    while True:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"server exited rc={proc.returncode}")
+        try:
+            st, body = _http("GET", base + "/engine/status", timeout=30)
+            if st == 200 and groups in (None, body["groups_with_leader"]):
+                return body
+        except OSError:
+            pass
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{base}: status not reached")
+        time.sleep(0.5)
+
+
+def _leg(t0, leg, lat, write_s, rounds, step_s, **kv):
+    ms = np.array(sorted(lat.values())) * 1e3
+    log("http_front", t0, leg=leg, acked=len(lat), write_s=write_s,
+        acked_writes_per_s=len(lat) / write_s,
+        ack_p50_ms=float(np.percentile(ms, 50)),
+        ack_p99_ms=float(np.percentile(ms, 99)), rounds=rounds,
+        rounds_per_s=rounds / write_s,
+        step_s={k: round(v, 3) for k, v in step_s.items()}, **kv)
+
+
+class _Steps(dict):
+    """Seconds of each named step of a leg, in order."""
+
+    def __init__(self):
+        super().__init__()
+        self._t = time.perf_counter()
+
+    def done(self, name):
+        now = time.perf_counter()
+        self[name] = now - self._t
+        self._t = now
+
+
+def _spawn(args, log_path, stdout=subprocess.DEVNULL):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.Popen([sys.executable, "-m", *args], cwd=REPO,
+                            env=env, stdout=stdout,
+                            stderr=open(log_path, "ab"), text=True)
+
+
+def _ready_line(proc, deadline_s=120.0) -> dict:
+    """The ingress's one JSON line on its standard output."""
+    ready, _, _ = select.select([proc.stdout], [], [], deadline_s)
+    if not ready:
+        raise AssertionError("the ingress printed no ready line")
+    line = proc.stdout.readline()
+    if not line:
+        raise AssertionError(f"the ingress exited rc={proc.wait(10)}")
+    return json.loads(line)
+
+
+def _scrape(base, name) -> dict:
+    """{labels: value} of one metric family on a /metrics page."""
+    with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+        text = r.read().decode()
+    return {ln.split(" ")[0][len(name):]: float(ln.rsplit(" ", 1)[1])
+            for ln in text.splitlines() if ln.startswith(name)}
+
+
+def _compute_apps() -> list:
+    """nvidia-smi's rows of processes that hold a context on the card.
+    Inside the chip machine's sandbox it reports every such process
+    with pid 1, so a process is told by the count of rows, not by its
+    pid."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout
+    return [ln.strip() for ln in apps.strip().splitlines() if ln.strip()]
+
+
+def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
+                     device_flags=()):
+    """The tenant HTTP front and the ingress as users run them, at the
+    CLI's defaults but for G, P and the window (fsync on, max_ents 8):
+
+    1. in process, counted: EngineServer(parse_args(flags)), PUT, GET,
+       quorum GET and /batch over real sockets; returns the ring_resolve
+       launches counted across this leg, in all and by instantiation;
+    2. `python -m etcd_tpu_torch` and `python -m
+       etcd_tpu_torch.server.ingress` as processes; writes and a CAS
+       race through the ingress; every batchframe sent was answered;
+    3. SIGKILL of the server, the same command again, every write acked
+       in 2 read back; SIGTERM ends both processes with rc 0."""
+    import torch
+    from etcd_tpu_torch.etcdmain import parse_args
+    from etcd_tpu_torch.etcdmain.etcd import EngineServer
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    gs = [i * groups // tenants for i in range(tenants)]
+    procs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-http-") as d:
+        def flags(name, port):
+            return ["--engine-groups", str(groups), "--engine-peers", str(P),
+                    "--engine-window", str(W),
+                    "--data-dir", os.path.join(d, name),
+                    "--listen-client-urls", f"http://127.0.0.1:{port}",
+                    *device_flags]
+
+        # Leg 1: in process, the kernels' launches counted.
+        steps = _Steps()
+        ring_resolve.launches = 0       # the main path starts here
+        for k in ring_resolve.launches_by_variant:
+            ring_resolve.launches_by_variant[k] = 0
+        srv = EngineServer(parse_args(flags("inproc", 0)))
+        if srv.engine.device.type != torch.device(dev).type:
+            raise AssertionError(f"engine on {srv.engine.device}")
+        srv.start()
+        try:
+            base = srv.client_urls[0]
+            status = _wait_status(base, groups)
+            steps.done("boot")
+            r0, t1 = srv.engine.round_no, time.perf_counter()
+            lat = _put_all(base, gs, lambda g: f"h{g}")
+            write_s = time.perf_counter() - t1
+            rounds = srv.engine.round_no - r0
+            steps.done("put")
+            _get_all(base, {g: f"h{g}" for g in gs})
+            steps.done("get")
+            _get_all(base, {g: f"h{g}" for g in gs[:quorum_gets]},
+                     quorum=True)
+            steps.done("quorum_get")
+            st, body = _http("POST", f"{base}/tenants/{gs[1]}/batch",
+                             json.dumps({"reqs": [
+                                 {"method": "PUT", "path": "/smoke-batch",
+                                  "value": "b"},
+                                 {"method": "PUT", "path": "/smoke",
+                                  "value": "x", "prevValue": "wrong"}]}
+                             ).encode(), {"Content-Type": "application/json"})
+            if st != 200 or [r["status"] for r in body["results"]] \
+                    != [201, 412]:
+                raise AssertionError(f"/batch: {st} {body}")
+            steps.done("batch")
+        finally:
+            srv.stop()
+        if srv.engine.failed is not None:
+            raise srv.engine.failed
+        launches = ring_resolve.launches   # the main path ends here
+        by_variant = dict(ring_resolve.launches_by_variant)
+        steps.done("stop")
+        _leg(t0, "in_process", lat, write_s, rounds, steps,
+             groups_with_leader=status["groups_with_leader"],
+             quorum_gets=quorum_gets, batch_statuses=[201, 412],
+             launches=launches, launches_by_variant=by_variant)
+
+        # Leg 2: the CLI and the ingress, as processes.
+        steps = _Steps()
+        port = _free_port()
+        base = f"http://127.0.0.1:{port}"
+        cmd = ["etcd_tpu_torch", *flags("cli", port)]
+        srv_log = os.path.join(d, "server.log")
+        try:
+            apps0 = _compute_apps() if on_card else []
+            server = _spawn(cmd, srv_log)
+            procs.append(server)
+            status = _wait_status(base, groups, server)
+            steps.done("boot")
+            apps = _compute_apps() if on_card else []
+            with open(srv_log, "rb") as f:
+                said_cuda = b" peers on cuda:" in f.read()
+            if on_card and (len(apps) != len(apps0) + 1 or not said_cuda):
+                raise AssertionError(f"the server is not on the card: "
+                                     f"{apps0} -> {apps}, log says cuda: "
+                                     f"{said_cuda}")
+            ing = _spawn(["etcd_tpu_torch.server.ingress", "--upstream",
+                          base], os.path.join(d, "ingress.log"),
+                         stdout=subprocess.PIPE)
+            procs.append(ing)
+            ing_base = f"http://127.0.0.1:{_ready_line(ing)['port']}"
+            steps.done("ingress_ready")
+            r0 = _http("GET", base + "/engine/status")[1]["round"]
+            t1 = time.perf_counter()
+            lat = _put_all(ing_base, gs, lambda g: f"i{g}")
+            write_s = time.perf_counter() - t1
+            rounds = _http("GET", base + "/engine/status")[1]["round"] - r0
+            steps.done("put")
+            cas_g = gs[2]
+            cas = {}
+
+            def swap(v):
+                cas[v] = _http("PUT", f"{ing_base}/tenants/{cas_g}/v2/keys/"
+                               f"smoke?prevValue=i{cas_g}",
+                               f"value={v}".encode(), FORM)
+
+            if _in_threads(swap, ["left", "right"], n_threads=2):
+                raise AssertionError("CAS requests failed")
+            outcomes = sorted((st, (b or {}).get("errorCode"))
+                              for st, b in cas.values())
+            if outcomes != [(200, None), (412, 101)]:
+                raise AssertionError(f"CAS race: {cas}")
+            winner = next(v for v, (st, _) in cas.items() if st == 200)
+            steps.done("cas")
+            frames = _scrape(ing_base, "etcd_ingress_upstream_frames_total")
+            sent = frames.get('{direction="sent"}', 0.0)
+            recv = frames.get('{direction="recv"}', 0.0)
+            if not 0 < sent == recv:
+                raise AssertionError(f"upstream frames: {frames}")
+            native = _scrape(ing_base, "etcd_ingress_native_enabled")
+            _leg(t0, "cli_ingress", lat, write_s, rounds, steps,
+                 groups_with_leader=status["groups_with_leader"],
+                 compute_apps_before_server=apps0,
+                 compute_apps_with_server=apps,
+                 cas_outcomes=outcomes, upstream_frames_sent=sent,
+                 upstream_frames_recv=recv,
+                 ingress_native_enabled=native.get("", None))
+
+            # Leg 3: SIGKILL the server, run the same command again. The
+            # acked writes are read back as soon as it serves: a local
+            # GET needs the replayed store, not a re-elected leader.
+            steps = _Steps()
+            server.send_signal(signal.SIGKILL)
+            server.wait(timeout=60)
+            server = _spawn(cmd, srv_log)
+            procs.append(server)
+            _wait_status(base, proc=server)
+            steps.done("restart")
+            want = {g: f"i{g}" for g in gs}
+            want[cas_g] = winner
+            _get_all(base, want)
+            leaders = _http("GET", base + "/engine/status")[1][
+                "groups_with_leader"]
+            steps.done("read_back")
+            rcs = {}
+            for name, p in (("ingress", ing), ("server", server)):
+                p.send_signal(signal.SIGTERM)
+                rcs[name] = p.wait(timeout=120)
+            steps.done("sigterm")
+            if rcs != {"ingress": 0, "server": 0}:
+                raise AssertionError(f"exit codes on SIGTERM: {rcs}")
+            log("http_front", t0, leg="sigkill_restart", read_back=len(want),
+                groups_with_leader_after_read_back=leaders, rcs=rcs,
+                step_s={k: round(v, 3) for k, v in steps.items()})
+        except BaseException:
+            with open(srv_log, "rb") as f:
+                print(f.read()[-4000:].decode(errors="replace"),
+                      file=sys.stderr)
+            raise
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    return launches, by_variant
+
+
 def ptxas_by_kernel(lines) -> dict:
     """ptxas's resource line for each compiled entry function."""
     out, name = {}, None
@@ -431,8 +784,17 @@ def main() -> int:
     if not (by_variant["te4"] and by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the main path: {by_variant}")
+    http_launches, http_by_variant = phase_http_front(dev)
+    if not (http_by_variant["te5"] and http_by_variant["generic"]):
+        raise AssertionError(f"the TE=5 and generic kernels were not both "
+                             f"launched on the HTTP front's path: "
+                             f"{http_by_variant}")
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
+    entry["launches_by_path"] = {
+        "engine": {"launches": launches, "by_variant": by_variant},
+        "http_front": {"launches": http_launches,
+                       "by_variant": http_by_variant}}
     entry["equal_to_plain"] = True
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

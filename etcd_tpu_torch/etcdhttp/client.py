@@ -1,0 +1,392 @@
+"""The public v2 HTTP API.
+
+Behavioral equivalent of reference etcdserver/etcdhttp/client.go: the full
+/v2/keys matrix (CRUD, CAS/CAD, in-order POST, TTL, long-poll + streaming
+watch — parseKeyRequest client.go:390-534, writeKeyEvent client.go:536-551,
+handleKeyWatch client.go:553-597), /v2/members admin (client.go:180-286),
+/v2/machines, /v2/stats/{self,leader,store}, /version and /health, with the
+X-Etcd-Cluster-ID / X-Etcd-Index / X-Raft-Index / X-Raft-Term header
+contract and the numeric-error JSON bodies of error/error.go.
+"""
+from __future__ import annotations
+
+import json
+import posixpath
+from typing import Dict, Optional
+
+from etcd_tpu_torch import errors, version as ver
+from etcd_tpu_torch.utils import metrics
+from etcd_tpu_torch.server.cluster import Member, STORE_KEYS_PREFIX
+from etcd_tpu_torch.server.request import (METHOD_DELETE, METHOD_GET, METHOD_POST,
+                                     METHOD_PUT, Request)
+from etcd_tpu_torch.etcdhttp.web import Ctx, Router
+from etcd_tpu_torch.store.event import Event
+
+KEYS_PREFIX = "/v2/keys"
+MEMBERS_PREFIX = "/v2/members"
+MACHINES_PREFIX = "/v2/machines"
+STATS_PREFIX = "/v2/stats"
+
+_BOOL_FIELDS = ("recursive", "sorted", "quorum", "wait", "stream", "dir",
+                "refresh", "noValueOnSuccess")
+
+# Actions whose successful response is 201 Created (reference
+# store/event.go IsCreated: create, or set with prevExist=false).
+_CREATED_ACTIONS = {"create"}
+
+
+def _parse_bool(ctx: Ctx, field: str) -> bool:
+    raw = ctx.value(field, "")
+    if raw in ("", "false"):
+        return False
+    if raw == "true":
+        return True
+    raise errors.EtcdError(errors.ECODE_INVALID_FIELD,
+                           cause=f'invalid value for "{field}"')
+
+
+def trim_prefix(d: dict, prefix: str = STORE_KEYS_PREFIX) -> dict:
+    """Strip the internal keys prefix from every node key in a response body
+    (reference trimEventPrefix / trimNodeExternPrefix client.go:600-625)."""
+    def trim_node(n: dict) -> dict:
+        n = dict(n)
+        k = n.get("key", "")
+        if k.startswith(prefix):
+            n["key"] = k[len(prefix):] or "/"
+        if n.get("nodes") is not None:
+            n["nodes"] = [trim_node(c) for c in n["nodes"]]
+        return n
+
+    d = dict(d)
+    for field in ("node", "prevNode"):
+        if d.get(field) is not None:
+            d[field] = trim_node(d[field])
+    return d
+
+
+class ClientAPI:
+    """Routes for one EtcdServer's client listener. `security` is wired in by
+    the security module when auth is enabled (hasKeyPrefixAccess gate)."""
+
+    def __init__(self, server, security=None) -> None:
+        self.server = server
+        self.security = security
+
+    # -- routing --------------------------------------------------------------
+
+    def install(self, router: Router) -> None:
+        router.add(KEYS_PREFIX, self.handle_keys)
+        router.add(MEMBERS_PREFIX, self.handle_members)
+        router.add(MACHINES_PREFIX, self.handle_machines, exact=True)
+        router.add(STATS_PREFIX + "/self", self.handle_stats_self, exact=True)
+        router.add(STATS_PREFIX + "/leader", self.handle_stats_leader,
+                   exact=True)
+        router.add(STATS_PREFIX + "/store", self.handle_stats_store,
+                   exact=True)
+        router.add("/version", self.handle_version, exact=True)
+        router.add("/health", self.handle_health, exact=True)
+        router.add("/metrics", self.handle_metrics, exact=True)
+        router.add("/debug/vars", self.handle_debug_vars, exact=True)
+
+    # -- shared helpers -------------------------------------------------------
+
+    def _headers(self, etcd_index: Optional[int] = None) -> Dict[str, str]:
+        s = self.server
+        h = {"X-Etcd-Cluster-ID": f"{s.cluster.cluster_id:x}"}
+        if etcd_index is not None:
+            h["X-Etcd-Index"] = str(etcd_index)
+            h["X-Raft-Index"] = str(s.commit_index)
+            h["X-Raft-Term"] = str(s.term)
+        return h
+
+    def _error(self, ctx: Ctx, err: errors.EtcdError) -> None:
+        if not err.index:
+            err.index = self.server.store.current_index
+        # The internal store prefix must not leak into user-visible causes
+        # (reference trimErrorPrefix, client.go:142,622-626).
+        if err.cause.startswith(STORE_KEYS_PREFIX):
+            err.cause = err.cause[len(STORE_KEYS_PREFIX):]
+        ctx.send(err.status_code, err.to_json().encode() + b"\n",
+                 "application/json", self._headers(err.index))
+
+    # -- /v2/keys -------------------------------------------------------------
+
+    def handle_keys(self, ctx: Ctx, suffix: str) -> None:
+        if ctx.method not in ("GET", "PUT", "POST", "DELETE", "HEAD"):
+            ctx.send(405, b"Method Not Allowed",
+                     headers={"Allow": "GET, PUT, POST, DELETE, HEAD"})
+            return
+        try:
+            r = self._parse_key_request(ctx, suffix)
+            no_value = _parse_bool(ctx, "noValueOnSuccess")
+            if self.security is not None:
+                self.security.check_key_access(ctx, r)
+            result = self.server.do(r)
+        except errors.EtcdError as e:
+            self._error(ctx, e)
+            return
+        if isinstance(result, Event):
+            self._write_key_event(ctx, result, no_value=no_value)
+        else:  # a Watcher from store.watch
+            self._handle_watch(ctx, r, result)
+
+    def _parse_key_request(self, ctx: Ctx, suffix: str) -> Request:
+        """reference parseKeyRequest client.go:390-534."""
+        method = "GET" if ctx.method == "HEAD" else ctx.method
+        if method not in (METHOD_GET, METHOD_PUT, METHOD_POST, METHOD_DELETE):
+            raise errors.EtcdError(errors.ECODE_INVALID_FORM,
+                                   cause=f"bad method {method}")
+        p = posixpath.normpath(STORE_KEYS_PREFIX + "/" + suffix.lstrip("/"))
+        if p != STORE_KEYS_PREFIX and \
+                not p.startswith(STORE_KEYS_PREFIX + "/"):
+            # ".." segments must not escape the keys namespace into the
+            # internal /0 cluster-metadata tree.
+            raise errors.EtcdError(errors.ECODE_INVALID_FORM,
+                                   cause=f"invalid key path {suffix!r}")
+        flags = {f: _parse_bool(ctx, f) for f in _BOOL_FIELDS}
+
+        if ctx.has("prevValue") and ctx.value("prevValue") == "":
+            raise errors.EtcdError(errors.ECODE_PREV_VALUE_REQUIRED,
+                                   cause='"prevValue" cannot be empty')
+        prev_value = ctx.value("prevValue", "")
+
+        prev_index = 0
+        if ctx.value("prevIndex"):
+            try:
+                prev_index = int(ctx.value("prevIndex"))
+                if prev_index < 0:
+                    raise ValueError
+            except ValueError:
+                raise errors.EtcdError(errors.ECODE_INDEX_NAN,
+                                       cause='invalid value for "prevIndex"')
+
+        prev_exist: Optional[bool] = None
+        if ctx.has("prevExist"):
+            raw = ctx.value("prevExist")
+            if raw not in ("true", "false"):
+                raise errors.EtcdError(errors.ECODE_INVALID_FIELD,
+                                       cause='invalid value for "prevExist"')
+            prev_exist = raw == "true"
+
+        since = 0
+        if ctx.value("waitIndex"):
+            try:
+                since = int(ctx.value("waitIndex"))
+                if since < 0:
+                    raise ValueError
+            except ValueError:
+                raise errors.EtcdError(errors.ECODE_INDEX_NAN,
+                                       cause='invalid value for "waitIndex"')
+
+        expiration: Optional[float] = None
+        if ctx.value("ttl"):
+            try:
+                ttl = int(ctx.value("ttl"))
+                if ttl < 0:
+                    raise ValueError
+            except ValueError:
+                raise errors.EtcdError(errors.ECODE_TTL_NAN,
+                                       cause='invalid value for "ttl"')
+            if ttl > 0:
+                expiration = self.server.clock() + ttl
+
+        if flags["wait"] and flags["quorum"]:
+            raise errors.EtcdError(
+                errors.ECODE_INVALID_FIELD,
+                cause='"quorum" is incompatible with "wait"')
+        if flags["stream"] and not flags["wait"]:
+            raise errors.EtcdError(
+                errors.ECODE_INVALID_FIELD,
+                cause='"stream" requires "wait"')
+        if flags["refresh"]:
+            if ctx.has("value"):
+                raise errors.EtcdError(
+                    errors.ECODE_REFRESH_VALUE,
+                    cause="A value was provided on a refresh")
+            if expiration is None:
+                raise errors.EtcdError(
+                    errors.ECODE_REFRESH_TTL_REQUIRED,
+                    cause="No TTL value set")
+
+        return Request(
+            method=method, path=p, val=ctx.value("value", ""),
+            dir=flags["dir"], prev_value=prev_value, prev_index=prev_index,
+            prev_exist=prev_exist, expiration=expiration,
+            wait=flags["wait"], since=since, recursive=flags["recursive"],
+            sorted=flags["sorted"], quorum=flags["quorum"],
+            stream=flags["stream"], refresh=flags["refresh"])
+
+    def _write_key_event(self, ctx: Ctx, e: Event,
+                         no_value: bool = False) -> None:
+        """reference writeKeyEvent client.go:536-551."""
+        # IsCreated (reference store/event.go:48-58): an explicit create, or
+        # a set that made a new node (no prevNode), answers 201.
+        created = (e.action in _CREATED_ACTIONS or
+                   (e.action == "set" and e.prev_node is None))
+        status = 201 if created else 200
+        d = e.to_dict()
+        if no_value and e.action in ("set", "update", "create",
+                                     "compareAndSwap", "compareAndDelete"):
+            # noValueOnSuccess strips the payload echo (reference
+            # writeKeyEvent noValueOnSuccess handling).
+            d.pop("node", None)
+            d.pop("prevNode", None)
+        body = json.dumps(trim_prefix(d)).encode() + b"\n"
+        ctx.send(status, body, "application/json",
+                 self._headers(e.etcd_index))
+
+    def _handle_watch(self, ctx: Ctx, r: Request, watcher) -> None:
+        """Long-poll or chunked stream (reference handleKeyWatch
+        client.go:553-597). The watcher is released on client disconnect."""
+        headers = self._headers(getattr(watcher, "start_index",
+                                        self.server.store.current_index))
+        try:
+            if not r.stream:
+                while True:
+                    e = watcher.next_event(timeout=0.5)
+                    if e is not None:
+                        body = (json.dumps(trim_prefix(e.to_dict())).encode()
+                                + b"\n")
+                        ctx.send(200, body, "application/json", headers)
+                        return
+                    if watcher.removed or ctx.client_gone() or \
+                            self.server.stopped:
+                        ctx.send(200, b"", "application/json", headers)
+                        return
+            else:
+                ctx.begin_stream(200, "application/json", headers)
+                while True:
+                    e = watcher.next_event(timeout=0.5)
+                    if e is not None:
+                        data = (json.dumps(trim_prefix(e.to_dict())).encode()
+                                + b"\n")
+                        if not ctx.write_chunk(data):
+                            return
+                    elif watcher.removed or ctx.client_gone() or \
+                            self.server.stopped:
+                        ctx.end_stream()
+                        return
+        finally:
+            watcher.remove()
+
+    # -- /v2/members ----------------------------------------------------------
+
+    def handle_members(self, ctx: Ctx, suffix: str) -> None:
+        s = self.server
+        h = self._headers()
+        # Mutations need root once security is on (reference client.go:184-187
+        # hasWriteRootAccess).
+        if (self.security is not None and
+                not self.security.check_members_access(ctx)):
+            ctx.send_json(401, {"message": "Insufficient credentials"}, h)
+            return
+        try:
+            if ctx.method == "GET" and suffix in ("", "/"):
+                body = {"members": [self._member_dict(m)
+                                    for m in s.cluster.members()]}
+                ctx.send_json(200, body, h)
+            elif ctx.method == "POST" and suffix in ("", "/"):
+                req = self._parse_member_body(ctx)
+                m = Member.new(req.get("name", ""), req["peerURLs"],
+                               s.cluster.token)
+                s.add_member(m)
+                ctx.send_json(201, self._member_dict(m), h)
+            elif ctx.method == "DELETE" and suffix.startswith("/"):
+                mid = self._parse_member_id(suffix)
+                if s.cluster.is_id_removed(mid):
+                    ctx.send(410, b"Member permanently removed\n",
+                             headers=h)
+                    return
+                s.remove_member(mid)
+                ctx.send(204, headers=h)
+            elif ctx.method == "PUT" and suffix.startswith("/"):
+                mid = self._parse_member_id(suffix)
+                req = self._parse_member_body(ctx)
+                old = s.cluster.member(mid)
+                m = Member(id=mid, name=old.name if old else "",
+                           peer_urls=tuple(req["peerURLs"]),
+                           client_urls=old.client_urls if old else ())
+                s.update_member(m)
+                ctx.send(204, headers=h)
+            else:
+                ctx.send(405, b"Method Not Allowed",
+                         headers={"Allow": "GET, POST, DELETE, PUT"})
+        except errors.EtcdError as e:
+            code = 500 if e.code in (errors.ECODE_RAFT_INTERNAL,
+                                     errors.ECODE_LEADER_ELECT) else 409
+            if e.code == errors.ECODE_KEY_NOT_FOUND:
+                code = 404
+            ctx.send_json(code, {"message": e.cause or e.message}, h)
+        except (KeyError, ValueError, json.JSONDecodeError) as e:
+            ctx.send_json(400, {"message": f"bad member request: {e}"}, h)
+
+    @staticmethod
+    def _member_dict(m: Member) -> dict:
+        return {"id": f"{m.id:x}", "name": m.name,
+                "peerURLs": list(m.peer_urls),
+                "clientURLs": list(m.client_urls)}
+
+    @staticmethod
+    def _parse_member_body(ctx: Ctx) -> dict:
+        d = json.loads(ctx.body.decode() or "{}")
+        urls = d.get("peerURLs")
+        if not urls or not isinstance(urls, list):
+            raise ValueError("peerURLs required")
+        for u in urls:
+            if not (u.startswith("http://") or u.startswith("https://")):
+                raise ValueError(f"invalid peer URL {u!r}")
+        return d
+
+    @staticmethod
+    def _parse_member_id(suffix: str) -> int:
+        return int(suffix.strip("/"), 16)
+
+    # -- misc surfaces --------------------------------------------------------
+
+    def handle_machines(self, ctx: Ctx, suffix: str) -> None:
+        urls = self.server.cluster.client_urls()
+        ctx.send(200, ", ".join(urls).encode(), "text/plain",
+                 self._headers())
+
+    def handle_stats_self(self, ctx: Ctx, suffix: str) -> None:
+        ctx.send_json(200, self.server.stats.to_dict(), self._headers())
+
+    def handle_stats_leader(self, ctx: Ctx, suffix: str) -> None:
+        s = self.server
+        if not s.is_leader():
+            e = errors.EtcdError(errors.ECODE_RAFT_INTERNAL,
+                                 cause="not current leader")
+            ctx.send(403, e.to_json().encode() + b"\n", "application/json",
+                     self._headers())
+            return
+        ctx.send_json(200, s.lstats.to_dict(), self._headers())
+
+    def handle_stats_store(self, ctx: Ctx, suffix: str) -> None:
+        ctx.send_json(200, self.server.store.stats.to_dict(),
+                      self._headers())
+
+    def handle_version(self, ctx: Ctx, suffix: str) -> None:
+        ctx.send_json(200, {"etcdserver": ver.VERSION,
+                            "etcdcluster": self.server.cluster_version()})
+
+    def handle_health(self, ctx: Ctx, suffix: str) -> None:
+        healthy = (self.server.leader_id != 0 and not self.server.stopped
+                   and not getattr(self.server, "_fatal", False))
+        ctx.send_json(200 if healthy else 503,
+                      {"health": "true" if healthy else "false"})
+
+    def handle_metrics(self, ctx: Ctx, suffix: str) -> None:
+        """Prometheus text exposition (reference client.go:53,102 wiring
+        prometheus.Handler(); metric set per */metrics.go)."""
+        used, _ = metrics.fd_usage()
+        metrics.file_descriptors_used.set(used)
+        ctx.send(200, metrics.REGISTRY.expose().encode(),
+                 "text/plain; version=0.0.4")
+
+    def handle_debug_vars(self, ctx: Ctx, suffix: str) -> None:
+        """expvar-style JSON (reference client.go:317-331 serveVars:
+        file_descriptor_limit + live raft.status)."""
+        _, limit = metrics.fd_usage()
+        st = self.server.raft_status()
+        ctx.send_json(200, {"file_descriptor_limit": limit,
+                            "raft.status": st})

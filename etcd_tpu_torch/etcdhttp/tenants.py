@@ -1,0 +1,718 @@
+"""Multi-tenant HTTP surface for the batched MultiNode engine: the full
+/v2/keys matrix served per consensus group from ONE kernel.
+
+Routes (the multi-tenant re-framing of reference etcdserver/etcdhttp —
+each tenant group gets the same client API one etcd cluster exposes):
+
+    /tenants/{g}/v2/keys/...   full v2 keys CRUD/CAS/CAD/watch (reuses
+                               ClientAPI via a per-tenant server adapter)
+    /tenants/{g}/batch         POST a coalesced batch of writes served by
+                               MultiEngine.do_many — the ingress tier's
+                               upstream surface (server/ingress.py); one
+                               HTTP request fans into one deep P_MULTI
+                               log entry and N in-slot results
+    /tenants/{g}/batchframe    POST + Upgrade: etcd-batchframe -> 101,
+                               then the persistent binary flush channel
+                               (server/batchframe.py): length-prefixed
+                               request/response frames, pipelined up to
+                               the ingress flush window, submitted via
+                               MultiEngine.submit_many in frame order
+                               and collected off-thread so the staging
+                               queue never drains between flushes
+    /tenants/{g}/status        group consensus status (leader, term,
+                               commit, applied, active slots)
+    /tenants/{g}/conf          POST {"op": "add"|"remove", "slot": n} —
+                               membership change through the group's own
+                               consensus (reference /v2/members semantics)
+    /engine/status             engine-wide summary
+    /health, /version          liveness + version (reference client.go)
+"""
+from __future__ import annotations
+
+import json
+import queue
+import threading
+import time
+from typing import Dict
+
+from etcd_tpu_torch import errors, version
+from etcd_tpu_torch.etcdhttp.client import ClientAPI
+from etcd_tpu_torch.etcdhttp.web import Ctx, HttpServer, Router
+
+
+class _TenantCluster:
+    """Just enough cluster surface for ClientAPI._headers."""
+
+    def __init__(self, g: int) -> None:
+        self.cluster_id = g
+
+
+class _BatchSlotCtx:
+    """Ctx facade scoping one batch slot's auth check to the credentials
+    the ingress forwarded for THAT slot. The outer connection belongs to
+    the ingress process, not the client — evaluating every slot against
+    it would collapse all coalesced writers into one anonymous identity
+    and make per-user ACLs unenforceable through the ingress."""
+
+    __slots__ = ("method", "headers")
+
+    def __init__(self, method: str, auth) -> None:
+        self.method = method
+        # No credentials -> empty headers: the slot is evaluated as the
+        # anonymous guest, never as the carrying ingress connection.
+        self.headers = {"Authorization": auth} if auth else {}
+
+
+class _TenantServer:
+    """Adapts one engine group to the `server` interface ClientAPI drives
+    (do/store/clock/stopped/commit_index/term), so the entire keys path —
+    parsing, CAS/CAD, long-poll + stream watch — is shared verbatim with
+    the single-cluster server (etcdhttp/client.py)."""
+
+    def __init__(self, engine, g: int) -> None:
+        self._engine = engine
+        self._g = g
+        self.cluster = _TenantCluster(g)
+        self.clock = time.time
+
+    def cluster_version(self) -> str:
+        # All tenants of one engine run the binary's version — there is no
+        # per-tenant rolling upgrade, so the security capability gate
+        # (reference capability.go) is always open.
+        return version.VERSION
+
+    def do(self, r):
+        return self._engine.do(self._g, r)
+
+    @property
+    def store(self):
+        return self._engine.store(self._g)
+
+    @property
+    def stopped(self) -> bool:
+        return self._engine._stop_ev.is_set()
+
+    @property
+    def commit_index(self) -> int:
+        return int(self._engine.h_commit[self._g].max())
+
+    @property
+    def term(self) -> int:
+        return int(self._engine.h_term[self._g].max())
+
+
+class TenantAPI:
+    """Router glue: dispatches /tenants/{g}/... to per-tenant ClientAPIs.
+
+    `admin_credentials` is an optional ("user", "password") pair; when set,
+    every pool-wide lifecycle verb (POST /tenants, PUT/DELETE /tenants/{g})
+    requires matching HTTP basic auth — the engine-operator analogue of the
+    reference's root gate on /v2/members (client.go:184-187). Independent
+    of it, DELETE on a tenant whose OWN auth is enabled always requires
+    that tenant's root credentials: destroying an authenticated tenant's
+    keyspace is strictly stronger than shrinking its quorum, which is
+    already root-gated via /tenants/{g}/conf."""
+
+    def __init__(self, engine, admin_credentials=None) -> None:
+        self.engine = engine
+        self.admin_credentials = admin_credentials
+        # Caches keyed by the engine's per-slot lifecycle generation: a
+        # slot removed + recreated (via HTTP here, the engine API
+        # directly, or another frontend) must never be served through the
+        # previous generation's SecurityHandler/store adapters.
+        self._apis: Dict[int, tuple] = {}   # g -> (gen, ClientAPI)
+        self._secs: Dict[int, tuple] = {}   # g -> (gen, SecurityHandler)
+
+    def install(self, router: Router) -> None:
+        router.add("/tenants", self.handle_tenants_root, exact=True)
+        router.add("/tenants/", self.handle_tenants)
+        router.add("/engine/status", self.handle_engine_status)
+        router.add("/metrics", self.handle_metrics)
+        router.add("/debug/flight", self.handle_debug_flight)
+        router.add("/debug/traces", self.handle_debug_traces)
+        router.add("/health", self.handle_health)
+        router.add("/version", self.handle_version)
+
+    def handle_tenants_root(self, ctx: Ctx, suffix: str) -> None:
+        """GET /tenants lists provisioned tenants; POST /tenants
+        provisions one at the lowest free pool slot (optional body
+        {"peers": n}) — the runtime CreateGroup of reference
+        raft/multinode.go:181-218."""
+        if ctx.method == "GET":
+            ctx.send_json(200, {"tenants": self.engine.tenants(),
+                                "pool": self.engine.cfg.groups})
+            return
+        if ctx.method != "POST":
+            ctx.send(405, b"Method Not Allowed",
+                     headers={"Allow": "GET, POST"})
+            return
+        if not self._lifecycle_ok(ctx):
+            ctx.send_json(401, {"message": "Insufficient credentials"})
+            return
+        self._create(ctx, None)
+
+    def _create(self, ctx: Ctx, g) -> None:
+        try:
+            body = json.loads(ctx.body.decode() or "{}")
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+            n = body.get("peers")
+            if n is not None:
+                n = int(n)
+            gid = self.engine.create_tenant(g, n)
+        except errors.EtcdError as e:
+            ctx.send(e.status_code, e.to_json().encode() + b"\n",
+                     "application/json")
+            return
+        except (TypeError, ValueError, json.JSONDecodeError) as e:
+            ctx.send_json(400, {"message": f"bad create body: {e}"})
+            return
+        # Creation always assigns slots 0..n-1 (deterministic — no racy
+        # re-read of the live mask here).
+        n = n or self.engine.cfg.initial_peers or self.engine.cfg.peers
+        ctx.send_json(201, {"tenant": gid, "active_slots": list(range(n))})
+
+    def _api(self, g: int) -> ClientAPI:
+        gen = int(self.engine.tenant_gen[g])
+        hit = self._apis.get(g)
+        if hit is not None and hit[0] == gen:
+            return hit[1]
+        # Per-tenant auth: each tenant gets its own SecurityHandler
+        # whose users/roles/enabled flag live under /2/security/* of
+        # the TENANT's OWN replicated keyspace (the security.go:66-68
+        # doer seam bound to this group's consensus) — tenants enable
+        # and administer auth independently of each other.
+        from etcd_tpu_torch.etcdhttp.client_security import SecurityHandler
+        srv = _TenantServer(self.engine, g)
+        sec = SecurityHandler(srv)
+        api = ClientAPI(srv, security=sec)
+        self._secs[g] = (gen, sec)
+        self._apis[g] = (gen, api)
+        return api
+
+    def _sec(self, g: int):
+        self._api(g)
+        return self._secs[g][1]
+
+    def _lifecycle_ok(self, ctx: Ctx, g=None) -> bool:
+        """Gate for pool lifecycle verbs (create/remove). Two principals
+        may act: the ENGINE OPERATOR (when the frontend was configured
+        with admin credentials) anywhere in the pool, and — for verbs
+        aimed at a live tenant — that tenant's OWN root (when the tenant
+        enabled auth). Without configured admin credentials, lifecycle is
+        open EXCEPT against tenants that enabled auth, which always
+        require their root (deleting an authenticated tenant's keyspace
+        is strictly stronger than the already-root-gated quorum shrink
+        on /tenants/{g}/conf)."""
+        from etcd_tpu_torch.etcdhttp.client_security import basic_auth
+        if self.admin_credentials is not None:
+            if basic_auth(ctx) == tuple(self.admin_credentials):
+                return True
+            if g is not None and self.engine.tenant_active(g):
+                sec = self._sec(g)
+                return sec.enabled() and sec.has_root_access(ctx)
+            return False
+        if g is not None and self.engine.tenant_active(g):
+            return self._sec(g).check_members_access(ctx)
+        return True
+
+    def handle_tenants(self, ctx: Ctx, suffix: str) -> None:
+        parts = suffix.split("/", 1)
+        rest = parts[1] if len(parts) > 1 else ""
+        try:
+            g = int(parts[0])
+            if not 0 <= g < self.engine.cfg.groups:
+                raise ValueError
+        except ValueError:
+            ctx.send_json(404, {"message": f"no such tenant {parts[0]!r}"})
+            return
+        # Lifecycle verbs on the bare /tenants/{g} path.
+        if rest == "":
+            if ctx.method == "PUT":
+                if not self._lifecycle_ok(ctx, g):
+                    ctx.send_json(401,
+                                  {"message": "Insufficient credentials"})
+                    return
+                self._create(ctx, g)
+            elif ctx.method == "DELETE":
+                if not self._lifecycle_ok(ctx, g):
+                    ctx.send_json(401,
+                                  {"message": "Insufficient credentials"})
+                    return
+                try:
+                    self.engine.remove_tenant(g)
+                except errors.EtcdError as e:
+                    ctx.send(e.status_code, e.to_json().encode() + b"\n",
+                             "application/json")
+                    return
+                # No cache pop needed: remove_tenant bumped the slot's
+                # lifecycle generation, so the next _api(g) discards the
+                # stale handlers (popping here would race a concurrent
+                # request's freshly-rebuilt entry).
+                ctx.send_json(200, {"removed": g})
+            elif ctx.method == "GET":
+                if self.engine.tenant_active(g):
+                    ctx.send_json(200, self.engine.status(g))
+                else:
+                    ctx.send_json(404, {"message": f"no such tenant {g}"})
+            else:
+                ctx.send(405, b"Method Not Allowed",
+                         headers={"Allow": "GET, PUT, DELETE"})
+            return
+        if not self.engine.tenant_active(g):
+            ctx.send_json(404, {"message": f"tenant {g} not provisioned"})
+            return
+        if rest == "v2/keys" or rest.startswith("v2/keys/"):
+            self._api(g).handle_keys(ctx, rest[len("v2/keys"):])
+        elif rest == "v2/security" or rest.startswith("v2/security/"):
+            self._handle_security(ctx, g, rest[len("v2/security"):])
+        elif rest.startswith("v2/stats/"):
+            self._handle_stats(ctx, g, rest[len("v2/stats/"):])
+        elif rest == "status":
+            ctx.send_json(200, self.engine.status(g))
+        elif rest == "conf":
+            self._handle_conf(ctx, g)
+        elif rest == "batch":
+            self._handle_batch(ctx, g)
+        elif rest == "batchframe":
+            self._handle_batchframe(ctx, g)
+        else:
+            ctx.send_json(404, {"message": f"unknown tenant path {rest!r}"})
+
+    def _handle_batch(self, ctx: Ctx, g: int) -> None:
+        """POST /tenants/{g}/batch — the coalesced write surface the
+        ingress tier (server/ingress.py) ships its flush windows through.
+        Body: {"reqs": [{"method", "path", "value", "ttl", "dir",
+        "recursive", "prevValue", "prevIndex", "prevExist", "refresh",
+        "auth"}, ...]} (or a bare list); "auth" is the slot's client's
+        Authorization header value, forwarded so per-user ACLs survive
+        coalescing. The whole batch rides MultiEngine.do_many — one lock
+        acquisition, one deep P_MULTI log entry per max_ents*batch_max
+        window — and every request's outcome comes back IN-SLOT:
+        {"results": [{"status": s, "event": {...}} | {"status": s,
+        "error": {...}}, ...]}, aligned with the request array. A failed
+        CAS or auth denial occupies its slot; it never fails the batch."""
+        from etcd_tpu_torch.etcdhttp.client import trim_prefix
+        from etcd_tpu_torch.server.cluster import STORE_KEYS_PREFIX
+        if ctx.method != "POST":
+            ctx.send(405, b"Method Not Allowed", headers={"Allow": "POST"})
+            return
+        try:
+            body = json.loads(ctx.body.decode() or "{}")
+            raw = body if isinstance(body, list) else body.get("reqs")
+            if not isinstance(raw, list):
+                raise ValueError('body must be {"reqs": [...]} or a list')
+            if not raw:
+                ctx.send_json(200, {"results": []})
+                return
+            reqs, auths = [], []
+            for d in raw:
+                reqs.append(self._parse_batch_item(d))
+                a = d.get("auth")
+                if a is not None and not isinstance(a, str):
+                    raise ValueError('"auth" must be a string')
+                auths.append(a)
+        except errors.EtcdError as e:
+            ctx.send(e.status_code, e.to_json().encode() + b"\n",
+                     "application/json")
+            return
+        except (TypeError, ValueError, KeyError,
+                json.JSONDecodeError) as e:
+            ctx.send_json(400, {"message": f"bad batch body: {e}"})
+            return
+        # Per-request auth against the TENANT's own security handler,
+        # each slot under ITS client's forwarded credentials ("auth"
+        # field; slots without one fall back to the carrying request's):
+        # a denied slot carries its 401 downstream, its batch-mates
+        # still commit (the demux contract).
+        sec = self._sec(g)
+        results: list = [None] * len(reqs)
+        admitted, admitted_idx = [], []
+        for i, r in enumerate(reqs):
+            slot_ctx = _BatchSlotCtx(ctx.method, auths[i]) \
+                if auths[i] else ctx
+            try:
+                sec.check_key_access(slot_ctx, r)
+            except errors.EtcdError as e:
+                results[i] = e
+                continue
+            admitted.append(r)
+            admitted_idx.append(i)
+        if admitted:
+            for i, res in zip(admitted_idx,
+                              self.engine.do_many(g, admitted)):
+                results[i] = res
+        out = []
+        for res in results:
+            if isinstance(res, errors.EtcdError):
+                if res.cause.startswith(STORE_KEYS_PREFIX):
+                    res.cause = res.cause[len(STORE_KEYS_PREFIX):]
+                out.append({"status": res.status_code,
+                            "error": json.loads(res.to_json())})
+            else:
+                d = res.to_dict()
+                created = (d.get("action") == "create"
+                           or (d.get("action") == "set"
+                               and d.get("prevNode") is None))
+                out.append({"status": 201 if created else 200,
+                            "event": trim_prefix(d)})
+        ctx.send_json(200, {"results": out},
+                      {"X-Etcd-Index":
+                       str(self.engine.store(g).current_index)})
+
+    def _handle_batchframe(self, ctx: Ctx, g: int) -> None:
+        """POST /tenants/{g}/batchframe + Upgrade: etcd-batchframe — the
+        ingress tier's persistent binary flush channel. After the 101
+        this connection's handler thread becomes the frame READER: it
+        parses each request frame (one walcodec-packed P_MULTI blob per
+        flush), runs per-slot auth, and stages the flush through
+        MultiEngine.submit_many WITHOUT waiting for commit — so a
+        pipelined ingress window keeps frames flowing while earlier
+        flushes are still in their fsync rounds. A per-channel COLLECTOR
+        thread gathers each flush's results in submission order and
+        writes one response frame per flush, each slot carrying the
+        final client-facing body so the ingress fan-back does no JSON
+        work. Frame-order submission preserves the lane's FIFO; the
+        fsync-gated ack invariant is untouched because collect_many only
+        yields results the ack path released."""
+        from etcd_tpu_torch.server import batchframe
+        if (ctx.method != "POST"
+                or ctx.headers.get("Upgrade", "").lower()
+                != batchframe.UPGRADE_NAME):
+            ctx.send_json(426, {"message": "batchframe requires POST + "
+                                           "Upgrade: etcd-batchframe"},
+                          {"Upgrade": batchframe.UPGRADE_NAME})
+            return
+        rfile, wfile = ctx.hijack()
+        try:
+            wfile.write(batchframe.handshake_response())
+            wfile.flush()
+        except OSError:
+            return
+        jobs: queue.Queue = queue.Queue()
+        dead = threading.Event()
+        collector = threading.Thread(
+            target=self._batchframe_collector, args=(g, jobs, wfile, dead),
+            daemon=True, name=f"batchframe-collect{g}")
+        collector.start()
+        try:
+            while not dead.is_set():
+                frame = batchframe.read_request_frame(rfile)
+                if frame is None:
+                    break
+                jobs.put(self._batchframe_submit(g, *frame))
+        except OSError:
+            pass
+        finally:
+            jobs.put(None)
+            collector.join(timeout=30)
+
+    def _batchframe_submit(self, g: int, flush_id: int, auth_json: bytes,
+                           payload: bytes) -> tuple:
+        """Parse + auth-check + stage one request frame (reader thread,
+        non-blocking). Returns the collector's job: either a staged
+        flush or a frame-level error every rider of the flush gets."""
+        from etcd_tpu_torch.server.engine import _unpack_multi
+        try:
+            if not payload:
+                raise ValueError("empty payload")
+            blobs = _unpack_multi(payload)
+            auths = (json.loads(auth_json.decode()) if auth_json
+                     else [None] * len(blobs))
+            if not isinstance(auths, list) or len(auths) != len(blobs):
+                raise ValueError("auth list does not match slot count")
+            reqs = [self._parse_batch_item(json.loads(b)) for b in blobs]
+        except errors.EtcdError as e:
+            return (flush_id, None, None, None,
+                    (e.status_code, e.to_json().encode() + b"\n"))
+        except Exception as e:  # noqa: BLE001 — channel input, fail the flush
+            body = json.dumps(
+                {"message": f"bad batchframe payload: {e}"}).encode()
+            return (flush_id, None, None, None, (400, body + b"\n"))
+        sec = self._sec(g)
+        results: list = [None] * len(reqs)
+        admitted, admitted_idx = [], []
+        for i, r in enumerate(reqs):
+            try:
+                sec.check_key_access(_BatchSlotCtx("POST", auths[i]), r)
+            except errors.EtcdError as e:
+                results[i] = e
+                continue
+            admitted.append(r)
+            admitted_idx.append(i)
+        queues = self.engine.submit_many(g, admitted) if admitted else []
+        return (flush_id, results, admitted_idx, queues, None)
+
+    def _batchframe_collector(self, g: int, jobs: queue.Queue, wfile,
+                              dead: threading.Event) -> None:
+        """Per-channel collector: block on each staged flush's results in
+        submission order and write its response frame. Responses demux by
+        flush id on the ingress side, so ordering here is a convenience,
+        not a contract."""
+        from etcd_tpu_torch.etcdhttp.client import trim_prefix
+        from etcd_tpu_torch.server import batchframe
+        from etcd_tpu_torch.server.cluster import STORE_KEYS_PREFIX
+        broken = False
+        while True:
+            job = jobs.get()
+            if job is None:
+                return
+            flush_id, results, admitted_idx, queues, err = job
+            if broken:
+                # Channel already gone: the responses have nowhere to
+                # go (the ingress demux 503s the in-flight ids), but
+                # every staged flush must still be COLLECTED — its
+                # submit_many registered waiters and counted pending
+                # proposals, and only collect_many releases both. Skip
+                # it and the engine reports phantom pending proposals
+                # forever (the bench's inter-leg drain barrier hangs on
+                # exactly that gauge after the SIGKILL leg).
+                if queues:
+                    self.engine.collect_many(g, queues)
+                continue
+            if err is not None:
+                frame = batchframe.pack_error_frame(flush_id, err[0],
+                                                    err[1])
+            else:
+                if queues:
+                    for i, res in zip(admitted_idx,
+                                      self.engine.collect_many(g, queues)):
+                        results[i] = res
+                slots = []
+                for res in results:
+                    if isinstance(res, errors.EtcdError):
+                        if res.cause.startswith(STORE_KEYS_PREFIX):
+                            res.cause = res.cause[len(STORE_KEYS_PREFIX):]
+                        slots.append((res.status_code,
+                                      res.to_json().encode() + b"\n"))
+                    else:
+                        d = res.to_dict()
+                        created = (d.get("action") == "create"
+                                   or (d.get("action") == "set"
+                                       and d.get("prevNode") is None))
+                        slots.append((201 if created else 200,
+                                      json.dumps(trim_prefix(d)).encode()
+                                      + b"\n"))
+                frame = batchframe.pack_response_frame(flush_id, slots)
+            try:
+                wfile.write(frame)
+                wfile.flush()
+            except OSError:
+                # Channel gone: the reader unblocks on EOF/ sever; every
+                # un-responded flush 503s ingress-side (its demux fails
+                # exactly the in-flight ids — never a retry). Keep
+                # draining so later staged flushes get collected.
+                dead.set()
+                broken = True
+
+    def _parse_batch_item(self, d: dict):
+        """One batch item -> Request (the JSON twin of ClientAPI's
+        parseKeyRequest form fields; TTLs resolve against this server's
+        clock exactly as the per-request path does)."""
+        import posixpath
+        from etcd_tpu_torch.server.cluster import STORE_KEYS_PREFIX
+        from etcd_tpu_torch.server.request import Request
+        if not isinstance(d, dict):
+            raise ValueError("batch item must be an object")
+        method = d.get("method", "PUT")
+        if method not in ("PUT", "POST", "DELETE"):
+            raise errors.EtcdError(errors.ECODE_INVALID_FORM,
+                                   cause=f"bad batch method {method!r}")
+        suffix = d.get("path", "")
+        if not isinstance(suffix, str):
+            raise ValueError("path must be a string")
+        p = posixpath.normpath(STORE_KEYS_PREFIX + "/" + suffix.lstrip("/"))
+        if p != STORE_KEYS_PREFIX and \
+                not p.startswith(STORE_KEYS_PREFIX + "/"):
+            raise errors.EtcdError(errors.ECODE_INVALID_FORM,
+                                   cause=f"invalid key path {suffix!r}")
+        expiration = None
+        ttl = d.get("ttl")
+        if ttl is not None:
+            ttl = int(ttl)
+            if ttl < 0:
+                raise errors.EtcdError(errors.ECODE_TTL_NAN,
+                                       cause='invalid value for "ttl"')
+            if ttl > 0:
+                expiration = time.time() + ttl
+        prev_exist = d.get("prevExist")
+        if prev_exist is not None:
+            prev_exist = bool(prev_exist)
+        return Request(
+            method=method, path=p, val=str(d.get("value", "")),
+            dir=bool(d.get("dir", False)),
+            recursive=bool(d.get("recursive", False)),
+            prev_value=str(d.get("prevValue", "")),
+            prev_index=int(d.get("prevIndex", 0)),
+            prev_exist=prev_exist, expiration=expiration,
+            refresh=bool(d.get("refresh", False)))
+
+    def _handle_security(self, ctx: Ctx, g: int, sub: str) -> None:
+        """Per-tenant /v2/security/{roles,users,enable} (reference
+        client_security.go routes, one instance per tenant group)."""
+        sec = self._sec(g)
+        if sub == "/enable":
+            sec.handle_enable(ctx, "")
+        elif sub == "/roles" or sub.startswith("/roles/"):
+            sec.handle_roles(ctx, sub[len("/roles"):])
+        elif sub == "/users" or sub.startswith("/users/"):
+            sec.handle_users(ctx, sub[len("/users"):])
+        else:
+            ctx.send_json(404, {"message": f"unknown security path {sub!r}"})
+
+    def _handle_stats(self, ctx: Ctx, g: int, which: str) -> None:
+        """Per-tenant /v2/stats/{store,self,leader} (reference stats/
+        payloads; self/leader report the tenant's consensus view from the
+        engine — there is no per-tenant network transport to meter)."""
+        eng = self.engine
+        if which == "store":
+            ctx.send_json(200, eng.store(g).json_stats())
+            return
+        lead = eng.leader_slot(g)
+        st = eng.status(g)
+        if which == "self":
+            ctx.send_json(200, {
+                "name": f"tenant{g}",
+                "id": f"{g:x}",
+                "state": ("StateLeader" if lead == 0 else "StateFollower"),
+                "leaderInfo": {"leader": f"{lead:x}" if lead >= 0 else ""},
+                "raftTerm": st["term"],
+                "raftIndex": st["commit"],
+                "appliedIndex": st["applied"],
+            })
+        elif which == "leader":
+            if lead < 0:
+                # Mid-election: the reference answers 403 from non-leaders
+                # rather than fabricating a leader id.
+                ctx.send_json(403, {"message": "not current leader"})
+                return
+            followers = {f"{s:x}": {"counts": {"fail": 0, "success":
+                                               st["applied"]},
+                         "latency": {}}
+                         for s in st["active_slots"] if s != lead}
+            ctx.send_json(200, {"leader": f"{lead:x}",
+                                "followers": followers})
+        else:
+            ctx.send_json(404, {"message": f"unknown stats path {which!r}"})
+
+    def _handle_conf(self, ctx: Ctx, g: int) -> None:
+        if ctx.method != "POST":
+            ctx.send(405, b"Method Not Allowed", headers={"Allow": "POST"})
+            return
+        # Membership mutation needs root once the TENANT's security is on
+        # (reference /v2/members root gate, client.go:184-187) — without
+        # this, an unauthenticated client could shrink an authenticated
+        # tenant's quorum.
+        if not self._sec(g).check_members_access(ctx):
+            ctx.send_json(401, {"message": "Insufficient credentials"})
+            return
+        try:
+            d = json.loads(ctx.body.decode() or "{}")
+            slots = self.engine.conf_change(g, d["op"], int(d["slot"]))
+        except errors.EtcdError as e:
+            ctx.send(e.status_code, e.to_json().encode() + b"\n",
+                     "application/json")
+            return
+        except (KeyError, ValueError, json.JSONDecodeError) as e:
+            ctx.send_json(400, {"message": f"bad conf body: {e}"})
+            return
+        ctx.send_json(200, {"group": g, "active_slots": slots})
+
+    def handle_engine_status(self, ctx: Ctx, suffix: str) -> None:
+        eng = self.engine
+        leaders = sum(1 for g in range(eng.cfg.groups)
+                      if eng.leader_slot(g) >= 0)
+        out = {
+            "groups": eng.cfg.groups,
+            "tenants_active": len(eng.tenants()),
+            "peers": eng.cfg.peers,
+            "round": eng.round_no,
+            "round_ms_ewma": round(eng.round_ms_ewma, 3),
+            "groups_with_leader": leaders,
+            "applied_total": int(eng.applied.sum()),
+            "acked_requests": eng.acked_requests,
+            "pending_payloads": len(eng.payloads),
+        }
+        # Multi-host engines expose their catch-up counters too.
+        for k in ("pulls_sent", "payloads_pulled", "pay_frames_dropped",
+                  "snaps_sent", "snaps_installed"):
+            v = getattr(eng, k, None)
+            if v is not None:
+                out[k] = v
+        ctx.send_json(200, out)
+
+    def handle_metrics(self, ctx: Ctx, suffix: str) -> None:
+        """GET /metrics — Prometheus text exposition of every registered
+        series (reference etcdserver metrics.go + pkg/metrics): the
+        proposal reference metrics, per-compartment histograms and
+        gauges (round loop, WAL writer shards, applier shards, ack
+        gate), and process stats."""
+        from etcd_tpu_torch.utils.metrics import REGISTRY, fd_usage
+        used, limit = fd_usage()
+        extra = [
+            "# HELP process_open_fds Number of open file descriptors.",
+            "# TYPE process_open_fds gauge",
+            f"process_open_fds {float(used)}",
+            "# HELP process_max_fds Maximum number of open file "
+            "descriptors.",
+            "# TYPE process_max_fds gauge",
+            f"process_max_fds {float(limit)}",
+            "",
+        ]
+        body = (REGISTRY.expose() + "\n".join(extra)).encode()
+        ctx.send(200, body, "text/plain; version=0.0.4")
+
+    def handle_debug_flight(self, ctx: Ctx, suffix: str) -> None:
+        """GET /debug/flight — the round flight recorder as Chrome
+        trace-event JSON (load in chrome://tracing / Perfetto). POST
+        dumps the same snapshot to <data_dir>/diagnostics/ on disk."""
+        obs = getattr(self.engine, "obs", None)
+        if obs is None:
+            ctx.send_json(404, {"message": "engine has no flight "
+                                           "recorder"})
+            return
+        if ctx.method == "POST":
+            path = self.engine.dump_flight("http")
+            ctx.send_json(200, {"dumped": path})
+            return
+        ctx.send_json(200, obs.flight.to_trace_events())
+
+    def handle_debug_traces(self, ctx: Ctx, suffix: str) -> None:
+        """GET /debug/traces — sampled end-to-end proposal spans (stage
+        -> relative seconds per request id); empty unless
+        ETCD_TPU_TRACE_EVERY is set."""
+        obs = getattr(self.engine, "obs", None)
+        if obs is None:
+            ctx.send_json(404, {"message": "engine has no tracer"})
+            return
+        ctx.send_json(200, obs.tracer.dump())
+
+    def handle_health(self, ctx: Ctx, suffix: str) -> None:
+        ctx.send_json(200, {"health": "true"})
+
+    def handle_version(self, ctx: Ctx, suffix: str) -> None:
+        ctx.send_json(200, {"releaseVersion": version.VERSION})
+
+
+class EngineHttp:
+    """A listening HTTP front for a MultiEngine."""
+
+    def __init__(self, engine, host: str = "127.0.0.1", port: int = 0,
+                 cors=None, tls_context=None,
+                 admin_credentials=None) -> None:
+        self.engine = engine
+        router = Router()
+        self.api = TenantAPI(engine, admin_credentials=admin_credentials)
+        self.api.install(router)
+        self.http = HttpServer(host, port, router, cors=cors,
+                               tls_context=tls_context)
+
+    @property
+    def url(self) -> str:
+        return self.http.url
+
+    def start(self) -> None:
+        self.http.start()
+
+    def stop(self) -> None:
+        self.http.stop()

@@ -1,0 +1,332 @@
+"""Threaded HTTP routing core shared by the client and peer APIs.
+
+The reference hangs its handlers off Go's net/http ServeMux
+(etcdhttp/client.go:85-114); this is the same shape over Python's
+ThreadingHTTPServer: one OS thread per connection (long-poll watches hold
+theirs), prefix routing, and a Ctx that can either buffer one response or
+switch into chunked streaming for watch streams.
+"""
+from __future__ import annotations
+
+import json
+import select
+import socket
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs, unquote, urlsplit
+
+
+class Ctx:
+    """One request: parsed query+form values, response helpers, and a
+    client-disconnect probe for long-polls."""
+
+    def __init__(self, handler: BaseHTTPRequestHandler, method: str,
+                 path: str, query: Dict[str, List[str]], body: bytes) -> None:
+        self._h = handler
+        self.method = method
+        self.path = path
+        self.body = body
+        self._values: Dict[str, List[str]] = dict(query)
+        ctype = handler.headers.get("Content-Type", "")
+        if body and ctype.startswith("application/x-www-form-urlencoded"):
+            # Body parameters take precedence over the URL query string
+            # (Go net/http Request.Form semantics the reference relies on).
+            for k, v in parse_qs(body.decode("utf-8", "replace"),
+                                 keep_blank_values=True).items():
+                self._values[k] = v + self._values.get(k, [])
+        self._streaming = False
+        # Extra headers injected into every response (CORS); set by the
+        # server before dispatch.
+        self.extra_headers: Dict[str, str] = {}
+
+    # -- inputs -------------------------------------------------------------
+
+    @property
+    def headers(self):
+        return self._h.headers
+
+    def has(self, key: str) -> bool:
+        return key in self._values
+
+    def value(self, key: str, default: str = "") -> str:
+        v = self._values.get(key)
+        return v[0] if v else default
+
+    def remote_addr(self) -> str:
+        return f"{self._h.client_address[0]}:{self._h.client_address[1]}"
+
+    # -- buffered responses ---------------------------------------------------
+
+    def send(self, status: int, body: bytes = b"",
+             content_type: str = "text/plain",
+             headers: Optional[Dict[str, str]] = None) -> None:
+        h = self._h
+        h.send_response(status)
+        h.send_header("Content-Type", content_type)
+        h.send_header("Content-Length", str(len(body)))
+        for k, v in self.extra_headers.items():
+            h.send_header(k, v)
+        for k, v in (headers or {}).items():
+            h.send_header(k, v)
+        h.end_headers()
+        if body and self.method != "HEAD":
+            h.wfile.write(body)
+
+    def send_json(self, status: int, obj,
+                  headers: Optional[Dict[str, str]] = None) -> None:
+        self.send(status, json.dumps(obj).encode(), "application/json",
+                  headers)
+
+    # -- chunked streaming (watch streams) ------------------------------------
+
+    def begin_stream(self, status: int, content_type: str,
+                     headers: Optional[Dict[str, str]] = None) -> None:
+        h = self._h
+        # A stream writer must never block forever on a stalled client:
+        # with no socket timeout, a peer that stops reading (TCP buffers
+        # full) would pin this handler thread inside wfile.write and its
+        # watcher would never be released. timeout -> OSError subclass ->
+        # write_chunk returns False -> the loop cleans up.
+        try:
+            h.connection.settimeout(30.0)
+        except OSError:
+            pass
+        h.send_response(status)
+        h.send_header("Content-Type", content_type)
+        h.send_header("Transfer-Encoding", "chunked")
+        for k, v in self.extra_headers.items():
+            h.send_header(k, v)
+        for k, v in (headers or {}).items():
+            h.send_header(k, v)
+        h.end_headers()
+        self._streaming = True
+
+    def write_chunk(self, data: bytes) -> bool:
+        try:
+            w = self._h.wfile
+            w.write(f"{len(data):x}\r\n".encode())
+            w.write(data)
+            w.write(b"\r\n")
+            w.flush()
+            return True
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            return False
+
+    def end_stream(self) -> None:
+        try:
+            self._h.wfile.write(b"0\r\n\r\n")
+            self._h.wfile.flush()
+        except (BrokenPipeError, ConnectionResetError, OSError):
+            pass
+
+    # -- connection takeover (binary upgrade endpoints) -----------------------
+
+    def hijack(self):
+        """Take over the raw connection for a non-HTTP framed protocol
+        (the batchframe channel's 101 upgrade): returns (rfile, wfile)
+        positioned right after this request's body. The caller owns the
+        socket until it returns from its handler; the server then closes
+        the connection (keep-alive re-parse of binary frames as HTTP
+        would be garbage)."""
+        self._streaming = True      # handler loop closes the conn after
+        return self._h.rfile, self._h.wfile
+
+    def client_gone(self) -> bool:
+        """True once the peer closed its half of the connection — the
+        CloseNotify analogue that lets long-polls release their watcher
+        (reference client.go:571-576)."""
+        try:
+            sock = self._h.connection
+            r, _, _ = select.select([sock], [], [], 0)
+            if not r:
+                return False
+            data = sock.recv(1, socket.MSG_PEEK)
+            return len(data) == 0
+        except (OSError, ValueError):
+            return True
+
+
+Route = Tuple[str, bool, Callable[[Ctx, str], None]]
+
+
+class Router:
+    """Longest-prefix-wins routing. Handlers get (ctx, suffix) where suffix
+    is the path remainder after the matched prefix."""
+
+    def __init__(self) -> None:
+        self._routes: List[Route] = []
+
+    def add(self, prefix: str, fn: Callable[[Ctx, str], None],
+            exact: bool = False) -> None:
+        self._routes.append((prefix, exact, fn))
+        self._routes.sort(key=lambda r: len(r[0]), reverse=True)
+
+    def dispatch(self, ctx: Ctx) -> bool:
+        for prefix, exact, fn in self._routes:
+            if exact:
+                if ctx.path == prefix:
+                    fn(ctx, "")
+                    return True
+            elif ctx.path == prefix or ctx.path.startswith(
+                    prefix if prefix.endswith("/") else prefix + "/"):
+                fn(ctx, ctx.path[len(prefix):])
+                return True
+        return False
+
+
+class HttpServer:
+    """A ThreadingHTTPServer bound to a Router; daemon threads so watches
+    never block shutdown."""
+
+    def __init__(self, host: str, port: int, router: Router,
+                 server_version: str = "etcd-tpu",
+                 cors: Optional[set] = None, tls_context=None) -> None:
+        self.router = router
+        # CORS origin whitelist ("*" = any); None disables CORS handling
+        # (reference pkg/cors/cors.go CORSInfo + CORSHandler).
+        self.cors = set(cors) if cors else None
+
+        outer = self
+
+        class _Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            server_version_str = server_version
+
+            def log_message(self, fmt, *args):  # silence stderr chatter
+                pass
+
+            def setup(self):
+                # TLS handshakes run here, in the per-connection handler
+                # thread — never in the accept loop, where a slow client
+                # would head-of-line block every other connection.
+                if outer._tls:
+                    self.request.do_handshake()
+                super().setup()
+
+            def _run(self, method: str) -> None:
+                try:
+                    parts = urlsplit(self.path)
+                    length = int(self.headers.get("Content-Length") or 0)
+                    body = self.rfile.read(length) if length else b""
+                    ctx = Ctx(self, method, unquote(parts.path),
+                              parse_qs(parts.query, keep_blank_values=True),
+                              body)
+                    if outer.cors is not None:
+                        # reference CORSHandler.ServeHTTP: header on every
+                        # allowed-origin response; OPTIONS answered 200.
+                        if "*" in outer.cors:
+                            allow = "*"
+                        else:
+                            origin = self.headers.get("Origin", "")
+                            allow = origin if origin in outer.cors else None
+                        if allow is not None:
+                            ctx.extra_headers = {
+                                "Access-Control-Allow-Methods":
+                                    "POST, GET, OPTIONS, PUT, DELETE",
+                                "Access-Control-Allow-Origin": allow,
+                                "Access-Control-Allow-Headers":
+                                    "accept, content-type",
+                            }
+                        if method == "OPTIONS":
+                            ctx.send(200)
+                            return
+                    if not outer.router.dispatch(ctx):
+                        ctx.send(404, b"404 page not found\n")
+                    if ctx._streaming:
+                        self.close_connection = True
+                except (BrokenPipeError, ConnectionResetError):
+                    self.close_connection = True
+                except Exception as e:  # pragma: no cover - last resort
+                    try:
+                        self.send_error(500, str(e))
+                    except Exception:
+                        pass
+                    self.close_connection = True
+
+            def do_GET(self):
+                self._run("GET")
+
+            def do_PUT(self):
+                self._run("PUT")
+
+            def do_POST(self):
+                self._run("POST")
+
+            def do_DELETE(self):
+                self._run("DELETE")
+
+            def do_HEAD(self):
+                self._run("HEAD")
+
+            def do_OPTIONS(self):
+                self._run("OPTIONS")
+
+        class _Server(ThreadingHTTPServer):
+            """Tracks live connections so stop() can sever keep-alive
+            sockets: shutdown() alone only closes the LISTENING socket,
+            leaving handler threads serving old connections — a stopped
+            member would otherwise keep answering peers as a zombie."""
+            daemon_threads = True
+            # socketserver's default listen backlog of 5 resets connections
+            # under concurrent client bursts (reference etcd serves 256+
+            # concurrent clients in its benchmarks).
+            request_queue_size = 128
+
+            def __init__(self, addr, handler):
+                self._conns: set = set()
+                self._conns_lock = threading.Lock()
+                super().__init__(addr, handler)
+
+            def process_request(self, request, client_address):
+                with self._conns_lock:
+                    self._conns.add(request)
+                super().process_request(request, client_address)
+
+            def shutdown_request(self, request):
+                with self._conns_lock:
+                    self._conns.discard(request)
+                super().shutdown_request(request)
+
+            def close_all_connections(self):
+                with self._conns_lock:
+                    conns = list(self._conns)
+                for sock in conns:
+                    try:
+                        sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+
+        self._httpd = _Server((host, port), _Handler)
+        self._scheme = "https" if tls_context is not None else "http"
+        self._tls = tls_context is not None
+        if tls_context is not None:
+            # TLS listener (reference pkg/transport NewTLSListener,
+            # listener.go:60-80): wrap the accept socket; per-connection
+            # handshakes happen in the handler threads.
+            self._httpd.socket = tls_context.wrap_socket(
+                self._httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    @property
+    def url(self) -> str:
+        host, port = self._httpd.server_address[:2]
+        return f"{self._scheme}://{host}:{port}"
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        kwargs={"poll_interval": 0.1},
+                                        daemon=True, name="etcd-http")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.close_all_connections()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)

@@ -1,0 +1,310 @@
+"""Flag/env configuration for the `etcd-tpu` process.
+
+Behavioral equivalent of reference etcdmain/config.go + pkg/flags: the same
+flag names, `ETCD_<UPPER_SNAKE>` environment fallback for any flag not given
+on the command line (pkg/flags/flag.go:63-96), `name=url[,name=url]`
+initial-cluster parsing (pkg/types/urlsmap.go), and the Parse-time
+validations — mutually exclusive bootstrap flags (config.go:244-250),
+advertise-client-urls required when listen-client-urls is set
+(config.go:270-272), and election-timeout >= 5x heartbeat-interval
+(config.go:275-277).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from etcd_tpu_torch import version as ver
+
+DEFAULT_NAME = "default"
+CLUSTER_STATE_NEW = "new"
+CLUSTER_STATE_EXISTING = "existing"
+PROXY_OFF, PROXY_READONLY, PROXY_ON = "off", "readonly", "on"
+FALLBACK_EXIT, FALLBACK_PROXY = "exit", "proxy"
+
+DEFAULT_LISTEN_PEER = "http://localhost:2380"
+DEFAULT_LISTEN_CLIENT = "http://localhost:2379"
+
+
+class ConfigError(Exception):
+    pass
+
+
+def parse_urls(s: str) -> Tuple[str, ...]:
+    return tuple(u.strip().rstrip("/") for u in s.split(",") if u.strip())
+
+
+def parse_initial_cluster(s: str) -> Dict[str, List[str]]:
+    """``name=url,name=url2,other=url`` → {name: [urls]} (types/urlsmap.go)."""
+    out: Dict[str, List[str]] = {}
+    for part in s.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ConfigError(
+                f"invalid -initial-cluster entry {part!r}: expected name=url")
+        name, url = part.split("=", 1)
+        out.setdefault(name, []).append(url.rstrip("/"))
+    return out
+
+
+def initial_cluster_from_name(name: str) -> str:
+    return f"{name or DEFAULT_NAME}={DEFAULT_LISTEN_PEER}"
+
+
+@dataclass
+class MainConfig:
+    name: str = DEFAULT_NAME
+    data_dir: str = ""
+    listen_peer_urls: Tuple[str, ...] = (DEFAULT_LISTEN_PEER,)
+    listen_client_urls: Tuple[str, ...] = (DEFAULT_LISTEN_CLIENT,)
+    initial_advertise_peer_urls: Tuple[str, ...] = (DEFAULT_LISTEN_PEER,)
+    advertise_client_urls: Tuple[str, ...] = (DEFAULT_LISTEN_CLIENT,)
+    initial_cluster: Dict[str, List[str]] = field(default_factory=dict)
+    initial_cluster_token: str = "etcd-cluster"
+    initial_cluster_state: str = CLUSTER_STATE_NEW
+    discovery: str = ""
+    discovery_fallback: str = FALLBACK_PROXY
+    discovery_proxy: str = ""
+    discovery_srv: str = ""
+    proxy: str = PROXY_OFF
+    snapshot_count: int = 10000
+    heartbeat_interval: int = 100          # ms
+    election_timeout: int = 1000           # ms
+    max_snapshots: int = 5
+    max_wals: int = 5
+    cors: Tuple[str, ...] = ()
+    force_new_cluster: bool = False
+    debug: bool = False
+    # TLS (reference config.go:166-180).
+    cert_file: str = ""
+    key_file: str = ""
+    ca_file: str = ""
+    client_cert_auth: bool = False
+    peer_cert_file: str = ""
+    peer_key_file: str = ""
+    peer_ca_file: str = ""
+    peer_client_cert_auth: bool = False
+    # Multi-tenant engine mode (the batched-kernel serving path).
+    engine_groups: int = 0
+    engine_peers: int = 5
+    engine_window: int = 32
+    engine_interval_ms: int = 1
+    # 0 = single-device arrays; >0 = shard the kernel over a
+    # ("groups", "peers") mesh of all visible devices, with this many on
+    # the peers axis (1 = all devices on the groups axis).
+    engine_mesh_peers_axis: int = 0
+    # Compartment widths inside the engine process (engine.EngineConfig
+    # applier_shards / wal_shards). Declared here — not just in _FLAGS —
+    # so a MainConfig built directly (embed, tests) boots the engine.
+    engine_applier_shards: int = 1
+    engine_wal_shards: int = 1
+    # Where the engine's consensus state lives and its rounds run
+    # (engine.EngineConfig.device): "cuda" (the card) or "cpu".
+    engine_device: str = "cuda"
+
+    @property
+    def is_proxy(self) -> bool:
+        return self.proxy != PROXY_OFF
+
+    @property
+    def is_readonly_proxy(self) -> bool:
+        return self.proxy == PROXY_READONLY
+
+    @property
+    def should_fallback_to_proxy(self) -> bool:
+        return self.discovery_fallback == FALLBACK_PROXY
+
+    @property
+    def is_engine(self) -> bool:
+        return self.engine_groups > 0
+
+    @property
+    def election_ticks(self) -> int:
+        return self.election_timeout // self.heartbeat_interval
+
+
+_FLAGS = [
+    # (flag, kind, default, help)
+    ("name", str, DEFAULT_NAME, "Unique human-readable name for this node"),
+    ("data-dir", str, "", "Path to the data directory"),
+    ("listen-peer-urls", "urls", DEFAULT_LISTEN_PEER,
+     "List of URLs to listen on for peer traffic"),
+    ("listen-client-urls", "urls", DEFAULT_LISTEN_CLIENT,
+     "List of URLs to listen on for client traffic"),
+    ("initial-advertise-peer-urls", "urls", DEFAULT_LISTEN_PEER,
+     "List of this member's peer URLs to advertise to the cluster"),
+    ("advertise-client-urls", "urls", DEFAULT_LISTEN_CLIENT,
+     "List of this member's client URLs to advertise to the cluster"),
+    ("initial-cluster", str, "",
+     "Initial cluster configuration for bootstrapping"),
+    ("initial-cluster-token", str, "etcd-cluster",
+     "Initial cluster token for the etcd cluster during bootstrap"),
+    ("initial-cluster-state", ("new", "existing"), CLUSTER_STATE_NEW,
+     "Initial cluster state (new or existing)"),
+    ("discovery", str, "",
+     "Discovery service used to bootstrap the initial cluster"),
+    ("discovery-fallback", (FALLBACK_EXIT, FALLBACK_PROXY), FALLBACK_PROXY,
+     "Behavior when discovery fails (exit or proxy)"),
+    ("discovery-proxy", str, "",
+     "HTTP proxy to use for traffic to discovery service"),
+    ("discovery-srv", str, "",
+     "DNS domain used to bootstrap initial cluster"),
+    ("proxy", (PROXY_OFF, PROXY_READONLY, PROXY_ON), PROXY_OFF,
+     "Proxy mode (off, readonly, on)"),
+    ("snapshot-count", int, 10000,
+     "Number of committed transactions to trigger a snapshot"),
+    ("heartbeat-interval", int, 100,
+     "Time (in milliseconds) of a heartbeat interval"),
+    ("election-timeout", int, 1000,
+     "Time (in milliseconds) for an election to timeout"),
+    ("max-snapshots", int, 5,
+     "Maximum number of snapshot files to retain"),
+    ("max-wals", int, 5, "Maximum number of wal files to retain"),
+    ("cors", "urls", "",
+     "Comma-separated whitelist of origins for CORS"),
+    ("force-new-cluster", bool, False,
+     "Force to create a new one-member cluster"),
+    ("debug", bool, False, "Enable debug output to the logs"),
+    # Client TLS (reference etcdmain/config.go:166-173 security flags).
+    ("cert-file", str, "", "Path to the client server TLS cert file"),
+    ("key-file", str, "", "Path to the client server TLS key file"),
+    ("ca-file", str, "", "Path to the client server TLS trusted CA file"),
+    ("client-cert-auth", bool, False,
+     "Enable client cert authentication"),
+    # Peer TLS (reference etcdmain/config.go:174-180).
+    ("peer-cert-file", str, "", "Path to the peer server TLS cert file"),
+    ("peer-key-file", str, "", "Path to the peer server TLS key file"),
+    ("peer-ca-file", str, "", "Path to the peer server TLS trusted CA file"),
+    ("peer-client-cert-auth", bool, False,
+     "Enable peer client cert authentication"),
+    # Multi-tenant engine mode (beyond the reference: the batched-kernel
+    # serving path, docs/deployment.md §2).
+    ("engine-groups", int, 0,
+     "Multi-tenant engine mode: serve N consensus groups (tenants) from "
+     "one batched kernel at /tenants/{g}/v2/keys (0 = off)"),
+    ("engine-peers", int, 5, "Peer slots per engine group"),
+    ("engine-window", int, 32, "On-device log ring length per engine slot"),
+    ("engine-interval-ms", int, 1,
+     "Milliseconds between engine rounds (0 = flat out)"),
+    ("engine-mesh-peers-axis", int, 0,
+     "Shard the engine over all visible devices: mesh peers-axis size "
+     "(0 = no mesh, 1 = all devices on the groups axis)"),
+    ("engine-applier-shards", int, 1,
+     "Applier pool size: partition the post-commit apply/ack path by "
+     "tenant range across N worker threads (1 = single applier)"),
+    ("engine-wal-shards", int, 1,
+     "WAL-writer pool size: shard the engine log into N per-tenant-range "
+     "segment streams with parallel group-commit fsyncs (1 = single "
+     "stream; an existing data dir may upgrade 1 -> N once)"),
+    ("engine-device", str, "cuda",
+     "Torch device the engine runs on: cuda (the card; refuses to start "
+     "without one) or cpu"),
+]
+
+
+def _env_name(flag: str) -> str:
+    return "ETCD_" + flag.upper().replace("-", "_")
+
+
+def parse_args(argv: Sequence[str],
+               env: Optional[Dict[str, str]] = None) -> MainConfig:
+    env = os.environ if env is None else env
+    ap = argparse.ArgumentParser(
+        prog="etcd-tpu", description=f"etcd-tpu {ver.VERSION}",
+        allow_abbrev=False)
+    ap.add_argument("--version", action="version",
+                    version=f"etcd-tpu Version: {ver.VERSION}")
+    for flag, kind, default, help_ in _FLAGS:
+        dest = flag.replace("-", "_")
+        if kind is bool:
+            ap.add_argument(f"--{flag}", dest=dest, default=None,
+                            action="store_true", help=help_)
+        elif isinstance(kind, tuple):
+            ap.add_argument(f"--{flag}", dest=dest, default=None,
+                            choices=kind, help=help_)
+        elif kind is int:
+            ap.add_argument(f"--{flag}", dest=dest, default=None, type=int,
+                            help=help_)
+        else:
+            ap.add_argument(f"--{flag}", dest=dest, default=None, help=help_)
+    ns = ap.parse_args(list(argv))
+
+    cfg = MainConfig()
+    set_flags = set()
+    for flag, kind, default, _ in _FLAGS:
+        dest = flag.replace("-", "_")
+        val = getattr(ns, dest)
+        if val is None and _env_name(flag) in env:
+            # Env fallback only for flags not set on the command line
+            # (reference pkg/flags/flag.go:68-96).
+            raw = env[_env_name(flag)]
+            if kind is bool:
+                val = raw.lower() in ("1", "true", "yes", "on")
+            elif kind is int:
+                try:
+                    val = int(raw)
+                except ValueError:
+                    raise ConfigError(
+                        f"invalid value {raw!r} for {_env_name(flag)}: "
+                        f"expected an integer")
+            else:
+                val = raw
+        if val is None:
+            val = default
+        else:
+            set_flags.add(flag)
+        if kind == "urls":
+            val = parse_urls(val) if isinstance(val, str) else tuple(val)
+        if flag == "initial-cluster":
+            continue
+        setattr(cfg, dest, val)
+
+    # initial-cluster default derives from -name (etcdmain/etcd.go:82-85).
+    raw_ic = getattr(ns, "initial_cluster") or env.get(
+        _env_name("initial-cluster"))
+    if raw_ic is None:
+        raw_ic = initial_cluster_from_name(cfg.name)
+    cfg.initial_cluster = parse_initial_cluster(raw_ic)
+
+    # Validations (reference config.go:244-277).
+    n_bootstrap = sum(1 for f in ("discovery", "initial-cluster",
+                                  "discovery-srv") if f in set_flags)
+    if n_bootstrap > 1:
+        raise ConfigError(
+            "-initial-cluster, -discovery and -discovery-srv are mutually "
+            "exclusive")
+    if ("listen-client-urls" in set_flags and
+            "advertise-client-urls" not in set_flags and not cfg.is_proxy
+            and not cfg.is_engine):
+        raise ConfigError(
+            "-advertise-client-urls is required when -listen-client-urls is "
+            "set explicitly")
+    if cfg.is_engine and (cfg.is_proxy or cfg.discovery or
+                          cfg.discovery_srv):
+        raise ConfigError(
+            "-engine-groups is mutually exclusive with proxy and "
+            "discovery modes")
+    if cfg.engine_groups < 0:
+        raise ConfigError("-engine-groups must be >= 0")
+    if cfg.is_engine:
+        if cfg.engine_peers < 1:
+            raise ConfigError("-engine-peers must be >= 1")
+        if cfg.engine_window < 4:
+            raise ConfigError("-engine-window must be >= 4")
+        if cfg.engine_interval_ms < 0:
+            raise ConfigError("-engine-interval-ms must be >= 0")
+        if cfg.engine_mesh_peers_axis < 0:
+            raise ConfigError("-engine-mesh-peers-axis must be >= 0")
+        if cfg.engine_applier_shards < 1:
+            raise ConfigError("-engine-applier-shards must be >= 1")
+        if cfg.engine_wal_shards < 1:
+            raise ConfigError("-engine-wal-shards must be >= 1")
+    if 5 * cfg.heartbeat_interval > cfg.election_timeout:
+        raise ConfigError(
+            f"-election-timeout[{cfg.election_timeout}ms] should be at least "
+            f"5 times as -heartbeat-interval[{cfg.heartbeat_interval}ms]")
+    return cfg

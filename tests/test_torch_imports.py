@@ -19,7 +19,11 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "utils/fileutil.py", "utils/metrics.py", "native/__init__.py",
             "store/__init__.py", "store/event.py", "store/node.py",
             "store/watcher.py", "store/store.py", "server/request.py",
-            "server/obs.py", "server/enginewal.py", "server/walwriter.py"]
+            "server/obs.py", "server/enginewal.py", "server/walwriter.py",
+            "version.py", "utils/tlsutil.py", "server/cluster.py",
+            "server/security.py", "etcdhttp/web.py", "etcdhttp/client.py",
+            "etcdhttp/client_security.py", "server/batchframe.py",
+            "etcdhttp/tenants.py", "server/ingress.py"]
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
 
@@ -74,6 +78,50 @@ def test_host_module_is_a_verbatim_copy(rel):
     for i, (a, b) in enumerate(zip(ours, theirs), 1):
         if a != b:
             assert _IMPORT_LINE.sub(r"\1etcd_tpu", a) == b, f"{rel}:{i}"
+
+
+def test_cli_config_differs_only_by_the_engine_device():
+    """etcdmain/config.py is the JAX package's, apart from import lines,
+    plus the `engine_device` field and its `--engine-device` flag row."""
+    ours = open(os.path.join(PKG, "etcdmain/config.py")).read().splitlines()
+    theirs = open(os.path.join(ROOT, "etcd_tpu", "etcdmain/config.py")
+                  ).read().splitlines()
+    added = [ln for ln in ours if _IMPORT_LINE.sub(r"\1etcd_tpu", ln)
+             not in theirs]
+    assert [_IMPORT_LINE.sub(r"\1etcd_tpu", ln) for ln in ours
+            if ln not in added] == theirs
+    assert added == [
+        "    # Where the engine's consensus state lives and its rounds run",
+        "    # (engine.EngineConfig.device): \"cuda\" (the card) or \"cpu\".",
+        "    engine_device: str = \"cuda\"",
+        "    (\"engine-device\", str, \"cuda\",",
+        "     \"Torch device the engine runs on: cuda (the card; refuses to "
+        "start \"",
+        "     \"without one) or cpu\"),",
+    ]
+    from etcd_tpu_torch.etcdmain import parse_args
+    assert parse_args(["--engine-groups", "4"], env={}).engine_device \
+        == "cuda"
+    assert parse_args(["--engine-groups", "4"], env={
+        "ETCD_ENGINE_DEVICE": "cpu"}).engine_device == "cpu"
+    assert parse_args(["--engine-groups", "4", "--engine-device", "cpu"],
+                      env={"ETCD_ENGINE_DEVICE": "cuda"}
+                      ).engine_device == "cpu"
+
+
+def test_ingress_import_loads_no_torch_and_no_jax():
+    """The ingress tier runs in its own light process: importing it pulls
+    in neither torch nor jax nor anything of the JAX package."""
+    code = ("import sys\n"
+            "import etcd_tpu_torch.server.ingress\n"
+            "print('\\n'.join(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split()
+    assert "etcd_tpu_torch.server.ingress" in out
+    assert [m for m in out if _is_forbidden(m) or m == "torch"
+            or m.startswith("torch.")] == []
 
 
 def test_engine_defaults_to_the_card():
