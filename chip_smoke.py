@@ -23,8 +23,11 @@ exit) if any phase fails:
    `ring_resolve.launch_floor`) in both loops; host µs per call. The A/B
    of two commits' kernels is `etcd_tpu_torch/ops/ring_resolve_timing.py`.
 3. round: 40 full-width `step_routed_compact` rounds with the kernel and
-   with `resolve=ring_resolve_ref`, every output equal after every round;
-   30 small rounds on the card and on the CPU, bit-equal.
+   with `resolve=ring_resolve_ref`, every output equal after every round,
+   and their twin on the multi-host engine's slots round (40 rounds of
+   `step_routed_slots_auto`, hops=1, max_ents 8: TE=5 at idx (G, P, P),
+   generic at (G, P, 8)); 30 small rounds on the card and on the CPU,
+   bit-equal.
 4. engine: `MultiEngine` boots, elects, acks 1,000 PUTs from side
    threads, serves their GETs and 100 quorum GETs, and after a restart
    on the same data dir reads every acked write back. The kernels'
@@ -41,7 +44,19 @@ exit) if any phase fails:
    need no re-elected leader), rc 0 on SIGTERM for both. One
    JSON line per leg: acked writes/s, ack p50/p99, rounds/s, seconds
    per step.
-6. one JSON line describing every kernel, then the last line
+6. multihost_frames: five rank processes of `python -m
+   etcd_tpu_torch.tools.multihost_engine` on the one card (the frames
+   data plane: G, P=5 replicas of every group, one per rank, W=16,
+   max_ents 8, fsync on), every rank among the card's compute apps and
+   every group led on every rank; 1,000 PUTs from 100 threads spread
+   over the ranks (all forwarded to another rank's leader); SIGKILL of
+   one rank while writes go on through the survivors (worst gap between
+   acks, re-election of the groups it led); its restart on its own data
+   dir (to serving, to caught up); every acked write read back from the
+   rank that acked it; SIGTERM, rc 0 and an exit line from every rank
+   (device, `ring_resolve` launches by instantiation, both above zero
+   for TE=5 and generic, peak device memory).
+7. one JSON line describing every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA device; without one it exits nonzero and prints no result.
@@ -236,6 +251,56 @@ def phase_round(dev, groups=G, rounds=40):
         launches=ring_resolve.launches - launches0)
     if torch.device(dev).type == "cuda":
         round_profile(cfg, st_k, ib_k, pc, ps)
+    round_slots(dev, groups, rounds)
+
+
+def round_slots(dev, groups=G, rounds=40):
+    """The multi-host engine's slots round (`step_routed_slots_auto`,
+    hops=1, per-slot counts at the leader slots) at the frames plane's
+    shape (max_ents 8, so the conflict scan takes the generic
+    instantiation at idx (G, P, 8) and send assembly TE=5 at (G, P, P)),
+    with the kernel and with the plain resolve in lockstep, every output
+    equal after every round."""
+    import torch
+    from etcd_tpu_torch.ops import kernel
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    from etcd_tpu_torch.ops.state import KernelConfig, LEADER, init_state
+    t0 = time.perf_counter()
+    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=CLI_E,
+                       heartbeat_tick=3)
+    st_k = init_state(cfg, stagger=True, device=dev)
+    st_p = init_state(cfg, stagger=True, device=dev)
+    ib_k = torch.zeros((groups, P, P, cfg.fields), dtype=torch.int32,
+                       device=dev)
+    ib_p = ib_k.clone()
+    by0 = dict(ring_resolve.launches_by_variant)
+    t_kernel = 0.0
+    for r in range(rounds):
+        lead = (st_k.state == LEADER) & st_k.peer_mask
+        cnt = torch.where(lead, CLI_E, 0).to(torch.int32)
+        _sync(dev)
+        t1 = time.perf_counter()
+        st_k, ib_k = kernel.step_routed_slots_auto(cfg, st_k, ib_k, cnt,
+                                                   True)
+        _sync(dev)
+        t_kernel += time.perf_counter() - t1
+        st_p, ib_p = kernel.step_routed_slots_auto(
+            cfg, st_p, ib_p, cnt, True, resolve=ring_resolve_ref)
+        if not (_states_equal(st_k, st_p) and torch.equal(ib_k, ib_p)):
+            raise AssertionError(f"kernel slots round != plain at {r}")
+    led = bool(((st_k.state == LEADER) & st_k.peer_mask).any(dim=1).all())
+    commits = int(st_k.commit.amax(dim=1).sum())
+    if not led or commits <= 0:
+        raise AssertionError(f"round_slots: led={led} commits={commits}")
+    by = {k: ring_resolve.launches_by_variant[k] - by0[k] for k in by0}
+    if torch.device(dev).type == "cuda" and not (by["te5"]
+                                                 and by["generic"]):
+        raise AssertionError(f"round_slots: kernels launched {by}")
+    log("round_slots", t0, groups=groups, rounds=rounds, hops=1,
+        max_ents=CLI_E, equal_to_plain=True,
+        ms_per_round=t_kernel / rounds * 1e3,
+        committed_entries_per_s=commits / t_kernel,
+        launches=sum(by.values()), launches_by_variant=by)
 
 
 def round_profile(cfg, st, inbox, pc, ps, rounds=5):
@@ -423,6 +488,18 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _free_ports(n: int) -> list:
+    """n distinct free ports (all held open until every one is bound)."""
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
 def _in_threads(fn, items, n_threads=100, timeout=300):
     """fn(item) for every item, from n_threads threads; the errors."""
     errs = []
@@ -520,10 +597,11 @@ class _Steps(dict):
         self._t = now
 
 
-def _spawn(args, log_path, stdout=subprocess.DEVNULL):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+def _spawn(args, log_path, stdout=subprocess.DEVNULL, env=None):
+    full = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    full.update(env or {})
     return subprocess.Popen([sys.executable, "-m", *args], cwd=REPO,
-                            env=env, stdout=stdout,
+                            env=full, stdout=stdout,
                             stderr=open(log_path, "ab"), text=True)
 
 
@@ -733,6 +811,299 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
     return launches, by_variant
 
 
+NHOSTS = 5           # one replica of every group per rank process
+
+
+def _serving_line(path, deadline_s=60.0) -> str:
+    """The line a rank prints once it serves (it names its device)."""
+    t_end = time.monotonic() + deadline_s
+    while True:
+        with open(path) as f:
+            for ln in f:
+                if " serving tenants on " in ln:
+                    return ln.strip()
+        if time.monotonic() > t_end:
+            raise AssertionError(f"{path}: no serving line")
+        time.sleep(0.2)
+
+
+def _rank_line(path) -> dict:
+    """The JSON line a rank prints on its way out after SIGTERM."""
+    with open(path) as f:
+        lines = [ln for ln in f if ln.startswith('{"rank"')]
+    if not lines:
+        raise AssertionError(f"{path}: no exit line")
+    return json.loads(lines[-1])
+
+
+def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
+                           device_env=None):
+    """The multi-host engine on the frames data plane as users run it:
+    `hosts` rank processes of `python -m
+    etcd_tpu_torch.tools.multihost_engine`, all on the one card, each
+    owning one replica of every group (MHE_GROUPS=groups, MHE_WINDOW=16,
+    MHE_MAX_ENTS=8, MHE_FSYNC=1), the mailbox, proposals and payloads on
+    frames between them.
+
+    1. spawn; every rank among the card's compute apps; every group led
+       on every rank;
+    2. `tenants` PUTs from 100 threads spread over the ranks' HTTP ports,
+       each to a rank that is not its group's first leader (so most
+       forward): acked writes/s, ack p50/p99, rounds/s per rank;
+    3. SIGKILL of one rank, then one write to every tenant through the
+       survivors, each retried until it acks: the worst gap from the
+       kill to a group's first ack, and the written groups the victim
+       led that re-elected;
+    4. the rank restarts on its own data dir: seconds until it serves
+       and until it has applied what the survivors have;
+    5. every acked write read back from the rank that acked it;
+    6. SIGTERM: rc 0 for every rank, and each rank's exit line (device,
+       ring_resolve launches by instantiation, peak device memory).
+    Returns the ring_resolve launches summed over the ranks' exit lines,
+    in all and by instantiation, and the exit lines."""
+    import torch
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    step = max(groups // tenants, 1)
+    # Tenant i: its group's stagger-boot leader is rank i % hosts; its
+    # writes go to rank (i + 1) % hosts.
+    gs = [(i * step - i * step % hosts + i % hosts) % groups
+          for i in range(tenants)]
+    client = {g: (i + 1) % hosts for i, g in enumerate(gs)}
+    victim = hosts - 1
+    http_ports = _free_ports(hosts)
+    frame_ports = _free_ports(hosts)
+    procs = [None] * hosts
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-mhe-") as d:
+        logs = [os.path.join(d, f"rank{r}.err") for r in range(hosts)]
+        outs = [os.path.join(d, f"rank{r}.out") for r in range(hosts)]
+        bases = [f"http://127.0.0.1:{p}" for p in http_ports]
+
+        def start(r):
+            env = dict(MHE_RANK=str(r), MHE_NHOSTS=str(hosts), MHE_DATA=d,
+                       MHE_HTTP_PORTS=",".join(map(str, http_ports)),
+                       MHE_FRAME_PORTS=",".join(map(str, frame_ports)),
+                       MHE_GROUPS=str(groups), MHE_WINDOW=str(W),
+                       MHE_MAX_ENTS=str(CLI_E), MHE_FSYNC="1",
+                       MHE_PLANE="frames", **(device_env or {}))
+            procs[r] = _spawn(["etcd_tpu_torch.tools.multihost_engine"],
+                              logs[r], stdout=open(outs[r], "a"), env=env)
+
+        def rounds():
+            return [_http("GET", b + "/engine/status")[1]["round"]
+                    for b in bases]
+
+        try:
+            # 1. spawn, on the card, every group led on every rank.
+            steps = _Steps()
+            apps0 = _compute_apps() if on_card else []
+            for r in range(hosts):
+                start(r)
+            for r in range(hosts):
+                _wait_status(bases[r], proc=procs[r], deadline_s=600)
+            steps.done("serving")
+            apps = _compute_apps() if on_card else []
+            said = [_serving_line(path) for path in outs]
+            if on_card and (len(apps) != len(apps0) + hosts
+                            or not all(" on cuda:" in ln for ln in said)):
+                raise AssertionError(f"ranks not all on the card: {apps0} "
+                                     f"-> {apps}, on cuda: {said}")
+            for r in range(hosts):
+                _wait_status(bases[r], groups, procs[r], deadline_s=600)
+            steps.done("every_group_led")
+            log("multihost_frames", t0, step="boot", ranks=hosts,
+                groups=groups, peers=hosts, window=W, max_ents=CLI_E,
+                fsync=True, compute_apps_before=len(apps0),
+                compute_apps_with_ranks=len(apps),
+                step_s={k: round(v, 3) for k, v in steps.items()})
+
+            # 2. PUTs spread over the ranks.
+            acked = {}                    # (g, key) -> (value, rank)
+            lat = {}
+
+            def put(g):
+                r = client[g]
+                t1 = time.perf_counter()
+                st, body = _http("PUT", f"{bases[r]}/tenants/{g}/v2/keys/"
+                                 f"smoke", f"value=m{g}".encode(), FORM)
+                if st not in (200, 201) or body["node"]["value"] != f"m{g}":
+                    raise AssertionError(f"PUT g={g} at rank {r}: {st} "
+                                         f"{body}")
+                lat[g] = time.perf_counter() - t1
+                acked[(g, "smoke")] = (f"m{g}", r)
+
+            r0, t1 = rounds(), time.perf_counter()
+            errs = _in_threads(put, gs)
+            write_s = time.perf_counter() - t1
+            r1 = rounds()
+            if errs or len(lat) != len(gs):
+                raise AssertionError(f"PUT failures: {errs[:5]}")
+            ms = np.array(sorted(lat.values())) * 1e3
+            log("multihost_frames", t0, step="put", acked=len(lat),
+                write_s=write_s, acked_writes_per_s=len(lat) / write_s,
+                ack_p50_ms=float(np.percentile(ms, 50)),
+                ack_p99_ms=float(np.percentile(ms, 99)),
+                forwarded_share=sum(1 for g in gs if client[g] != g % hosts)
+                / len(gs),
+                rounds_per_s_by_rank=[(b - a) / write_s
+                                      for a, b in zip(r0, r1)])
+
+            # 3. one write to every tenant through the survivors, each
+            # retried (5 s attempts) until it acks; one rank is SIGKILLed
+            # once a tenth of them have acked.
+            victim_gs = {g for g in gs if _http(
+                "GET", f"{bases[0]}/tenants/{g}/status")[1]["lead"]
+                == victim}
+            survivors = [r for r in range(hosts) if r != victim]
+            first_ack = {}
+            killed = threading.Event()
+            t_kill = []
+            reelected = {}     # written group the victim led -> seconds
+
+            def watch():
+                """Each written group the victim led, from the kill until
+                rank 0 sees a survivor lead it (polled every 0.1 s)."""
+                def check(g):
+                    lead = _http("GET", f"{bases[0]}/tenants/{g}/status",
+                                 timeout=30)[1]["lead"]
+                    if lead in survivors:
+                        reelected[g] = time.perf_counter() - t_kill[0]
+
+                t_end = time.monotonic() + 180
+                while time.monotonic() < t_end:
+                    left = [g for g in victim_gs if g not in reelected]
+                    if not left:
+                        return
+                    _in_threads(check, left, n_threads=20)
+                    time.sleep(0.1)
+
+            def put_through(g):
+                r = survivors[g % len(survivors)]
+                deadline = time.monotonic() + 180
+                while True:
+                    try:
+                        st, body = _http(
+                            "PUT", f"{bases[r]}/tenants/{g}/v2/keys/killed",
+                            f"value=k{g}".encode(), FORM, timeout=5)
+                        if st in (200, 201):
+                            first_ack[g] = time.perf_counter()
+                            acked[(g, "killed")] = (f"k{g}", r)
+                            return
+                    except OSError:
+                        pass
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"g={g} never acked at {r}")
+                    time.sleep(0.05)
+
+            def kill():
+                while len(first_ack) < len(gs) // 10:
+                    time.sleep(0.01)
+                procs[victim].send_signal(signal.SIGKILL)
+                t_kill.append(time.perf_counter())
+                watcher.start()
+                procs[victim].wait(timeout=60)
+                killed.set()
+
+            killer = threading.Thread(target=kill, daemon=True)
+            watcher = threading.Thread(target=watch, daemon=True)
+            killer.start()
+            errs = _in_threads(put_through, gs)
+            if errs or not killed.wait(60):
+                raise AssertionError(f"writes through the kill: {errs[:5]}")
+            watcher.join(timeout=240)
+            acks = sorted(t for t in first_ack.values() if t > t_kill[0])
+            gaps = np.diff([t_kill[0]] + acks)
+            after = {g: t - t_kill[0] for g, t in first_ack.items()
+                     if t > t_kill[0]}
+            moved = len(reelected)
+            reelect_ms = np.array(sorted(reelected.values()) or [0]) * 1e3
+            log("multihost_frames", t0, step="sigkill", victim=victim,
+                acked=len(first_ack), acked_after_kill=len(acks),
+                worst_ack_gap_s=float(gaps.max()) if len(gaps) else None,
+                attempt_timeout_s=5,
+                victim_led_last_first_ack_s=max(
+                    (after[g] for g in victim_gs if g in after),
+                    default=None),
+                others_last_first_ack_s=max(
+                    (t for g, t in after.items() if g not in victim_gs),
+                    default=None),
+                written_groups_victim_led=len(victim_gs),
+                written_groups_reelected=moved,
+                reelect_p50_ms=float(np.percentile(reelect_ms, 50)),
+                reelect_max_ms=float(reelect_ms.max()))
+            if moved != len(victim_gs):
+                raise AssertionError(f"{len(victim_gs) - moved} groups the "
+                                     f"victim led did not re-elect")
+
+            # 4. the rank restarts on its own data dir.
+            steps = _Steps()
+            start(victim)
+            _wait_status(bases[victim], proc=procs[victim], deadline_s=600)
+            steps.done("serving")
+            want = max(_http("GET", bases[r] + "/engine/status")[1][
+                "applied_total"] for r in survivors)
+            t_end = time.monotonic() + 600
+            while True:
+                st = _wait_status(bases[victim], proc=procs[victim])
+                if st["applied_total"] >= want \
+                        and st["groups_with_leader"] == groups:
+                    break
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"rank {victim} did not catch up: "
+                                         f"{st}")
+                time.sleep(1.0)
+            steps.done("caught_up")
+
+            # 5. every acked write from the rank that acked it.
+            def get(item):
+                (g, key), (val, r) = item
+                st, body = _http("GET", f"{bases[r]}/tenants/{g}/v2/keys/"
+                                 f"{key}")
+                if st != 200 or body["node"]["value"] != val:
+                    raise AssertionError(f"GET g={g} {key} at {r}: {st} "
+                                         f"{body}")
+
+            errs = _in_threads(get, list(acked.items()))
+            if errs:
+                raise AssertionError(f"acked writes lost: {errs[:5]}")
+            steps.done("read_back")
+            log("multihost_frames", t0, step="rejoin", read_back=len(acked),
+                step_s={k: round(v, 3) for k, v in steps.items()})
+
+            # 6. SIGTERM: rc 0 and an exit line from every rank.
+            for p in procs:
+                p.send_signal(signal.SIGTERM)
+            rcs = [p.wait(timeout=120) for p in procs]
+            if rcs != [0] * hosts:
+                raise AssertionError(f"exit codes on SIGTERM: {rcs}")
+            lines = [_rank_line(path) for path in outs]
+        except BaseException:
+            for path in logs:
+                with open(path, "rb") as f:
+                    print(f"== {path}\n" + f.read()[-3000:].decode(
+                        errors="replace"), file=sys.stderr)
+            raise
+        finally:
+            for p in procs:
+                if p is not None and p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    by_variant = {k: sum(ln["launches_by_variant"][k] for ln in lines)
+                  for k in lines[0]["launches_by_variant"]}
+    if on_card and not all(ln["device"].startswith("cuda")
+                           and ln["launches_by_variant"]["te5"] > 0
+                           and ln["launches_by_variant"]["generic"] > 0
+                           for ln in lines):
+        raise AssertionError(f"a rank did not run the TE=5 and generic "
+                             f"kernels on the card: {lines}")
+    log("multihost_frames", t0, step="sigterm", rcs=rcs, ranks=lines,
+        groups_led_by_rank=[ln["leading"] for ln in lines],
+        peak_device_mib_by_rank=[None if ln["peak_device_bytes"] is None
+                                 else ln["peak_device_bytes"] / 2 ** 20
+                                 for ln in lines])
+    return sum(by_variant.values()), by_variant, lines
+
+
 def ptxas_by_kernel(lines) -> dict:
     """ptxas's resource line for each compiled entry function."""
     out, name = {}, None
@@ -789,12 +1160,16 @@ def main() -> int:
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
                              f"{http_by_variant}")
+    mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(dev)
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
         "engine": {"launches": launches, "by_variant": by_variant},
         "http_front": {"launches": http_launches,
-                       "by_variant": http_by_variant}}
+                       "by_variant": http_by_variant},
+        "multihost_frames": {
+            "launches": mh_launches, "by_variant": mh_by_variant,
+            "by_rank": [ln["launches_by_variant"] for ln in mh_lines]}}
     entry["equal_to_plain"] = True
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

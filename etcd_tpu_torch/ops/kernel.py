@@ -29,6 +29,10 @@ What differs from the JAX program:
   to earlier states (the compact diff compares against the pre-round
   state).
 - `tick` is a Python bool.
+- The JAX package donates the state and inbox buffers of its jitted
+  rounds (`donate_safe`, which also keeps XLA:CPU off donation). Eager
+  PyTorch has no donation: a round allocates its outputs, and a caller
+  frees the inputs by dropping its references.
 """
 from __future__ import annotations
 
@@ -427,6 +431,26 @@ def _write_terms(st: GroupState, cfg: KernelConfig, anchor: torch.Tensor,
 # Phase 3: proposals
 # ---------------------------------------------------------------------------
 
+def _apply_proposals_slots(st: GroupState, cfg: KernelConfig,
+                           cnt_gp: torch.Tensor,
+                           active: torch.Tensor) -> GroupState:
+    """Per-slot proposal admission for the multi-host engine: cnt_gp is
+    (G, P), and each host stages proposals only at its own leader slots.
+    Semantics match _apply_proposals with prop_slot = the slot whose count
+    is nonzero; non-leader slots admit nothing."""
+    is_ldr = active & (st.state == LEADER)
+    tail = st.last_index - st.commit
+    room = (cfg.window // 2 - tail).clamp_min(0)
+    cnt = torch.minimum(cnt_gp.clamp_max(cfg.max_ents), room)
+    cnt = (cnt * is_ldr.to(I32)).to(I32)
+    E = cfg.max_ents
+    terms = st.term[..., None].expand(*st.term.shape, E)
+    st = _write_terms(st, cfg, anchor=st.last_index, terms=terms,
+                      lo=st.last_index + 1, count=cnt, mask=cnt > 0)
+    st = st._replace(last_index=st.last_index + cnt)
+    return _set_self_progress(st)
+
+
 def _apply_proposals(st: GroupState, cfg: KernelConfig,
                      prop_count: torch.Tensor, prop_slot: torch.Tensor,
                      active: torch.Tensor) -> GroupState:
@@ -723,8 +747,10 @@ def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
                tick: bool, quiet: bool, force_hb: bool = False,
                resolve=ring_resolve) -> Tuple[GroupState, torch.Tensor]:
     """Shared round skeleton; `quiet` selects the message-phase
-    implementation. `force_hb` makes every active leader broadcast a
-    heartbeat this pass (the ReadIndex step's quorum solicitation)."""
+    implementation. prop_slot=None selects per-slot proposal admission
+    (prop_count is then (G, P), the multi-host engine's input).
+    `force_hb` makes every active leader broadcast a heartbeat this pass
+    (the ReadIndex step's quorum solicitation)."""
     active = active_mask(st)
     P = st.term.shape[1]
     st = st._replace(ack_age=(st.ack_age + 1).clamp_max(1 << 20))
@@ -744,7 +770,10 @@ def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
             st, r = _step_msgs_from(st, cfg, q, inbox[:, :, q, :], active,
                                     resolve)
             resp[:, :, q, :] = r
-    st = _apply_proposals(st, cfg, prop_count, prop_slot, active)
+    if prop_slot is None:
+        st = _apply_proposals_slots(st, cfg, prop_count, active)
+    else:
+        st = _apply_proposals(st, cfg, prop_count, prop_slot, active)
     st = _quorum_commit(st, cfg, active, lead_term0)
     st, outbox = _assemble_sends(st, cfg, resp, hb_fire, vote_fire, active,
                                  resolve)
@@ -893,10 +922,41 @@ def gather_rows(st: GroupState, gi: torch.Tensor, pi: torch.Tensor):
             st.state[gi, pi], st.last_index[gi, pi], st.log_term[gi, pi])
 
 
+def step_routed_slots(cfg: KernelConfig, st: GroupState,
+                      inbox: torch.Tensor, cnt_gp: torch.Tensor, tick: bool,
+                      resolve=ring_resolve
+                      ) -> Tuple[GroupState, torch.Tensor]:
+    """Multi-host serving step: per-slot proposal counts cnt_gp (G, P)
+    (see _apply_proposals_slots), full sequential message path, local
+    routing."""
+    st, outbox = _step_body(cfg, st, inbox, cnt_gp, None, tick,
+                            quiet=False, resolve=resolve)
+    return st, route_local(outbox)
+
+
+def step_routed_slots_auto(cfg: KernelConfig, st: GroupState,
+                           inbox: torch.Tensor, cnt_gp: torch.Tensor,
+                           tick: bool, drop_mask=None, hops: int = 1,
+                           resolve=ring_resolve
+                           ) -> Tuple[GroupState, torch.Tensor]:
+    """step_routed_slots with the quiescent fast path and the same
+    multi-hop/drop-mask machinery as step_routed_auto (this is that
+    function with per-slot admission, prop_slot=None).
+
+    Durability constraint for multi-host callers: hops must stay 1 when
+    peers live on independently failing hosts. With hops>1 the leader
+    counts follower acks produced on the device before those followers'
+    hosts journaled the entries, so a follower-host crash could lose an
+    acked write."""
+    return step_routed_auto(cfg, st, inbox, cnt_gp, None, tick, drop_mask,
+                            hops, resolve)
+
+
 _STEPS = {
     "step_routed_auto": step_routed_auto,
     "step_routed_compact": step_routed_compact,
     "step_routed_read_auto": step_routed_read_auto,
+    "step_routed_slots_auto": step_routed_slots_auto,
 }
 
 

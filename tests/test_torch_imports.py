@@ -23,7 +23,8 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "version.py", "utils/tlsutil.py", "server/cluster.py",
             "server/security.py", "etcdhttp/web.py", "etcdhttp/client.py",
             "etcdhttp/client_security.py", "server/batchframe.py",
-            "etcdhttp/tenants.py", "server/ingress.py"]
+            "etcdhttp/tenants.py", "server/ingress.py",
+            "parallel/frames.py"]
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
 
@@ -36,12 +37,17 @@ def _is_forbidden(name: str) -> bool:
 def test_engine_import_loads_no_jax_and_no_jax_package():
     code = ("import sys\n"
             "import etcd_tpu_torch.server.engine, etcd_tpu_torch.ops.kernel\n"
+            "import etcd_tpu_torch.server.hostengine\n"
+            "import etcd_tpu_torch.tools.multihost_engine\n"
+            "import etcd_tpu_torch.tools.multihost_supervisor\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     assert "etcd_tpu_torch.server.engine" in out
+    assert "etcd_tpu_torch.server.hostengine" in out
+    assert "etcd_tpu_torch.tools.multihost_supervisor" in out
     assert "torch" in out
     assert [m for m in out if _is_forbidden(m)] == []
 
@@ -143,3 +149,37 @@ def test_state_defaults_to_the_card():
         pytest.skip("a CUDA device is present: the default runs there")
     with pytest.raises((RuntimeError, AssertionError)):
         init_state(KernelConfig(groups=2, peers=3))
+
+
+def test_host_engine_and_launcher_default_to_the_card():
+    """HostEngineConfig.device and the launcher's MHE_DEVICE default to
+    "cuda"; without a card the engine refuses before the data dir."""
+    from etcd_tpu_torch.server.hostengine import HostEngine, HostEngineConfig
+    with tempfile.TemporaryDirectory() as d:
+        cfg = HostEngineConfig(groups=2, peers=3, data_dir=d, host_id=0,
+                               frame_listen=("127.0.0.1", 0))
+        assert cfg.device == "cuda"
+        assert cfg.data_plane == "frames"
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present: the default runs there")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            HostEngine(cfg)
+        assert os.listdir(d) == []
+        with pytest.raises(ValueError, match="device mesh"):
+            HostEngine(HostEngineConfig(
+                groups=2, peers=3, data_dir=d, host_id=0,
+                frame_listen=("127.0.0.1", 0), data_plane="collective",
+                device="cpu"))
+        assert os.listdir(d) == []
+        # The launcher, MHE_DEVICE unset: refused, no traceback, no dir.
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "MHE_DEVICE")}
+        env.update(MHE_RANK="0", MHE_NHOSTS="1", MHE_DATA=d,
+                   MHE_HTTP_PORTS="0", MHE_FRAME_PORTS="0")
+        res = subprocess.run(
+            [sys.executable, "-m", "etcd_tpu_torch.tools.multihost_engine"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+        assert res.returncode == 1, res
+        assert "no CUDA device" in res.stderr
+        assert "Traceback" not in res.stderr
+        assert os.listdir(d) == []

@@ -149,6 +149,9 @@ def test_round_does_not_write_its_inputs():
 
 
 def test_step_variant_is_a_lookup():
+    """The JAX package's step_variant names, and only those."""
     assert tk.step_variant("step_routed_compact") is tk.step_routed_compact
+    assert tk.step_variant("step_routed_slots_auto") \
+        is tk.step_routed_slots_auto
     with pytest.raises(KeyError):
-        tk.step_variant("step_routed_slots_auto")
+        tk.step_variant("step_routed_slots")
