@@ -5,12 +5,13 @@ multi-tenant engine: parse flags/env, default the data dir from the
 member name (etcd.go:96-99), identify whether the data dir was
 previously a member, a proxy or an engine (identifyDataDirOrDie
 etcd.go:376-404) and serve G tenant groups from one `MultiEngine` on
-the device `--engine-device` names (the card unless asked for the CPU).
+the device `--engine-device` names (the card unless asked for the CPU),
+or with `--engine-mesh-peers-axis N` on a ("groups", "peers") mesh of
+every visible card (parallel/mesh.py).
 
 The member and proxy modes of the JAX package's CLI belong to the
 single-group server and the proxy, which this package does not have
-yet; asked for either, `main` says so and returns 1. So does
-`--engine-mesh-peers-axis`, which needs the device mesh.
+yet; asked for either, `main` says so and returns 1.
 """
 from __future__ import annotations
 
@@ -53,6 +54,39 @@ def _listen_addr(url: str) -> Tuple[str, int]:
     return u.hostname or "127.0.0.1", u.port or 0
 
 
+def _engine_mesh(cfg: MainConfig):
+    """The ("groups", "peers") mesh of -engine-mesh-peers-axis over every
+    visible card (the CPU, as one device, under -engine-device cpu), with
+    flag-level refusals rather than an error from deep in the sharding."""
+    import torch
+    from etcd_tpu_torch.parallel.mesh import make_mesh
+    if cfg.engine_device.startswith("cuda"):
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise ConfigError(
+                f"-engine-device {cfg.engine_device} but no CUDA device is "
+                "available; pass --engine-device cpu to run on the CPU")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    else:
+        devices = [torch.device(cfg.engine_device)]
+    n = len(devices)
+    pa = cfg.engine_mesh_peers_axis
+    if n % pa != 0:
+        raise ConfigError(
+            f"-engine-mesh-peers-axis {pa} does not divide the "
+            f"{n} visible devices")
+    if cfg.engine_peers % pa != 0:
+        raise ConfigError(
+            f"-engine-peers {cfg.engine_peers} must be divisible "
+            f"by -engine-mesh-peers-axis {pa}")
+    if cfg.engine_groups % (n // pa) != 0:
+        raise ConfigError(
+            f"-engine-groups {cfg.engine_groups} must be "
+            f"divisible by the groups mesh axis ({n // pa} = "
+            f"{n} devices / peers-axis {pa})")
+    return make_mesh(devices, peers_axis=pa)
+
+
 class EngineServer:
     """Multi-tenant engine mode: G consensus groups served from one
     batched kernel at /tenants/{g}/v2/keys (docs/deployment.md §2)."""
@@ -61,10 +95,11 @@ class EngineServer:
         from etcd_tpu_torch.etcdhttp.tenants import EngineHttp
         from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
 
+        mesh = None
         if cfg.engine_mesh_peers_axis > 0:
-            raise ConfigError(
-                "-engine-mesh-peers-axis: the device mesh is not in the "
-                "PyTorch port yet (ROADMAP A6); run without it")
+            mesh = _engine_mesh(cfg)
+            log.info("engine: sharding over mesh %s",
+                     dict(zip(mesh.axis_names, mesh.shape)))
         self.engine = MultiEngine(EngineConfig(
             groups=cfg.engine_groups, peers=cfg.engine_peers,
             window=cfg.engine_window,
@@ -72,7 +107,7 @@ class EngineServer:
             round_interval=cfg.engine_interval_ms / 1000.0,
             applier_shards=cfg.engine_applier_shards,
             wal_shards=cfg.engine_wal_shards,
-            device=cfg.engine_device))
+            device=cfg.engine_device, mesh=mesh))
         client_tls = TLSInfo(cert_file=cfg.cert_file, key_file=cfg.key_file,
                              ca_file=cfg.ca_file,
                              client_cert_auth=cfg.client_cert_auth)

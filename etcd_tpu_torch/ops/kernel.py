@@ -28,6 +28,21 @@ What differs from the JAX program:
 - Functions never write into their inputs: the engine keeps references
   to earlier states (the compact diff compares against the pre-round
   state).
+- The sharded round (the device mesh, parallel/mesh.py): JAX runs one
+  program over sharded arrays and XLA inserts the collectives. Here
+  `step_routed_auto`, `step_routed_read_auto` and
+  `step_routed_slots_auto` also run on a block: peer columns
+  [c0, c0 + Pb) of a block of groups, with a comm (parallel/comm.py) for
+  the points where the block needs other columns. Every global slot id
+  is c0 plus the local column; the target-peer axis (match, next, ...)
+  and the inbox's sender axis hold all P columns in every block. The
+  cross-block points: the peer_mask of every column, gathered once per
+  call (the target axis's `active` and the quorum size); the quiescence
+  vote per hop (a per-group sum of leaders, then one global "any", so
+  every block takes the same branch); the route per hop (an all-to-all);
+  and the read plane's register and tally (gathers and sums over
+  peers). With c0 = 0 and no comm a block holds every column and the
+  functions are the unsharded round.
 - `tick` is a Python bool.
 - The JAX package donates the state and inbox buffers of its jitted
   rounds (`donate_safe`, which also keeps XLA:CPU off donation). Eager
@@ -36,7 +51,7 @@ What differs from the JAX program:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -49,7 +64,7 @@ from etcd_tpu_torch.ops.state import (CANDIDATE, FOLLOWER, F_COMMIT, F_HINT,
                                       M_VOTE, M_VOTE_RESP, N_FIXED_FIELDS,
                                       NH_SNAP, NH_VIOLATION, PR_PROBE,
                                       PR_REPLICATE, active_mask, in_window,
-                                      quorum, ring_lookup, term_at,
+                                      ring_lookup, term_at,
                                       xorshift32)
 
 I32 = torch.int32
@@ -69,8 +84,38 @@ def _ar(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
 
 
-def _eye(P: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.eye(P, dtype=torch.bool, device=like.device)[None, :, :]
+def _slot_ids(st: GroupState, c0: int) -> torch.Tensor:
+    """(Pb,) global slot index of each of the block's peer columns."""
+    return c0 + _ar(st.term.shape[1], st.term)
+
+
+def _self_eye(st: GroupState, c0: int) -> torch.Tensor:
+    """(1, Pb, P) bool: row p's own slot on the target-peer axis (the
+    identity when the block holds every column)."""
+    P = st.match.shape[2]
+    return (_slot_ids(st, c0)[:, None] == _ar(P, st.term)[None, :])[None]
+
+
+class _Blk(NamedTuple):
+    """The block a round runs on: its first global peer column, its comm
+    (None when it holds every column), and what it needs of every column:
+    the (G, P) peer_mask and the (G,) quorum size."""
+    c0: int
+    comm: object
+    mask: torch.Tensor
+    qr: torch.Tensor
+
+
+def _block(st: GroupState, c0: int, comm) -> _Blk:
+    """The round's view of its block; one gather of the peer_mask over
+    the peers cells when sharded (the kernel never changes the mask)."""
+    if comm is None:
+        if c0 != 0 or st.term.shape[1] != st.match.shape[2]:
+            raise ValueError("a block of peer columns needs a comm")
+        mask = st.peer_mask
+    else:
+        mask = comm.gather_peers(st.peer_mask.to(I32)) != 0
+    return _Blk(c0, comm, mask, mask.sum(dim=1, dtype=I32) // 2 + 1)
 
 
 def _first_true(m: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -96,10 +141,9 @@ def _last_term(st: GroupState, cfg: KernelConfig) -> torch.Tensor:
     return term_at(st, cfg, st.last_index)
 
 
-def _set_self_progress(st: GroupState) -> GroupState:
+def _set_self_progress(st: GroupState, c0: int = 0) -> GroupState:
     """Leader's own match tracks its last index."""
-    P = st.term.shape[1]
-    eye = _eye(P, st.term)
+    eye = _self_eye(st, c0)
     is_ldr = (st.state == LEADER)[..., None]
     match = _where(eye & is_ldr, st.last_index[..., None], st.match)
     nxt = _where(eye & is_ldr, st.last_index[..., None] + 1, st.next)
@@ -122,10 +166,9 @@ def _become_follower(st: GroupState, mask: torch.Tensor,
 
 
 def _append_noop_and_lead(st: GroupState, cfg: KernelConfig,
-                          win: torch.Tensor) -> GroupState:
+                          win: torch.Tensor, c0: int = 0) -> GroupState:
     """Masked becomeLeader: reset progress, append the no-op entry of the
     new term."""
-    P = st.term.shape[1]
     new_last = st.last_index + 1
     st = _write_terms(st, cfg, anchor=st.last_index,
                       terms=st.term[..., None], lo=new_last,
@@ -133,7 +176,7 @@ def _append_noop_and_lead(st: GroupState, cfg: KernelConfig,
     w3 = win[..., None]
     st = st._replace(
         state=_where(win, LEADER, st.state),
-        lead=_where(win, _ar(P, st.term)[None, :] + 1, st.lead),
+        lead=_where(win, _slot_ids(st, c0)[None, :] + 1, st.lead),
         elapsed=_where(win, 0, st.elapsed),
         last_index=_where(win, new_last, st.last_index),
         # Probe from the pre-no-op last+1 so the no-op itself replicates.
@@ -143,7 +186,7 @@ def _append_noop_and_lead(st: GroupState, cfg: KernelConfig,
         paused=_where(w3, False, st.paused),
         ack_age=_where(w3, 0, st.ack_age),
     )
-    return _set_self_progress(st)
+    return _set_self_progress(st, c0)
 
 
 # ---------------------------------------------------------------------------
@@ -151,11 +194,11 @@ def _append_noop_and_lead(st: GroupState, cfg: KernelConfig,
 # ---------------------------------------------------------------------------
 
 def _tick(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
-          tick: bool) -> Tuple[GroupState, torch.Tensor, torch.Tensor]:
+          tick: bool, blk: _Blk
+          ) -> Tuple[GroupState, torch.Tensor, torch.Tensor]:
     """Advance the logical clock one tick where `tick` is set. Returns
     (state, hb_fire_term, vote_fire_term): the term at which a heartbeat /
     vote broadcast was staged this round (0 = none)."""
-    P = st.term.shape[1]
     tick = bool(tick)
     is_ldr = st.state == LEADER
     elapsed = st.elapsed + int(tick)
@@ -179,11 +222,10 @@ def _tick(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
     # Campaign: term+1, vote self, tally own vote; single-voter groups win
     # instantly.
     camp = timeout
-    ar = _ar(P, st.term)
-    self_id = ar[None, :] + 1
+    self_id = _slot_ids(st, blk.c0)[None, :] + 1
     c3 = camp[..., None]
     votes = _where(c3, 0, st.votes)
-    votes = _where(c3 & (ar[None, None, :] == ar[None, :, None]), 1, votes)
+    votes = _where(c3 & _self_eye(st, blk.c0), 1, votes)
     st = st._replace(
         term=_where(camp, st.term + 1, st.term),
         vote=_where(camp, self_id, st.vote),
@@ -192,8 +234,8 @@ def _tick(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
         votes=votes,
         paused=_where(c3, False, st.paused),
     )
-    instant_win = camp & (quorum(st)[:, None] == 1)
-    st = _append_noop_and_lead(st, cfg, instant_win)
+    instant_win = camp & (blk.qr[:, None] == 1)
+    st = _append_noop_and_lead(st, cfg, instant_win, blk.c0)
     vote_fire_term = _where(camp & ~instant_win, st.term, 0)
 
     # Heartbeat broadcast resumes all paused probes.
@@ -207,7 +249,7 @@ def _tick(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
 
 def _step_msgs_from(st: GroupState, cfg: KernelConfig, q: int,
                     msg: torch.Tensor, active: torch.Tensor,
-                    resolve=ring_resolve
+                    blk: _Blk, resolve=ring_resolve
                     ) -> Tuple[GroupState, torch.Tensor]:
     """Process the inbox slot from sender `q` on every instance; returns
     the updated state and the staged response (G, P, F) addressed to q."""
@@ -260,10 +302,10 @@ def _step_msgs_from(st: GroupState, cfg: KernelConfig, q: int,
     st = st._replace(votes=votes)
     granted = (votes == 1).sum(dim=2, dtype=I32)
     rejected = (votes == 2).sum(dim=2, dtype=I32)
-    qr = quorum(st)[:, None]
+    qr = blk.qr[:, None]
     win = vr & (granted >= qr)
     lose = vr & ~win & (rejected >= qr)
-    st = _append_noop_and_lead(st, cfg, win)
+    st = _append_noop_and_lead(st, cfg, win, blk.c0)
     st = _become_follower(st, lose, st.term, 0)
     is_l = st.state == LEADER
 
@@ -432,8 +474,8 @@ def _write_terms(st: GroupState, cfg: KernelConfig, anchor: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _apply_proposals_slots(st: GroupState, cfg: KernelConfig,
-                           cnt_gp: torch.Tensor,
-                           active: torch.Tensor) -> GroupState:
+                           cnt_gp: torch.Tensor, active: torch.Tensor,
+                           c0: int = 0) -> GroupState:
     """Per-slot proposal admission for the multi-host engine: cnt_gp is
     (G, P), and each host stages proposals only at its own leader slots.
     Semantics match _apply_proposals with prop_slot = the slot whose count
@@ -448,17 +490,16 @@ def _apply_proposals_slots(st: GroupState, cfg: KernelConfig,
     st = _write_terms(st, cfg, anchor=st.last_index, terms=terms,
                       lo=st.last_index + 1, count=cnt, mask=cnt > 0)
     st = st._replace(last_index=st.last_index + cnt)
-    return _set_self_progress(st)
+    return _set_self_progress(st, c0)
 
 
 def _apply_proposals(st: GroupState, cfg: KernelConfig,
                      prop_count: torch.Tensor, prop_slot: torch.Tensor,
-                     active: torch.Tensor) -> GroupState:
+                     active: torch.Tensor, c0: int = 0) -> GroupState:
     """The addressed leader appends `prop_count[g]` new entries of its
     term; only the instance at `prop_slot[g]` appends. Admission never
     lets the uncommitted tail outrun half the ring window."""
-    P = st.term.shape[1]
-    is_target = _ar(P, st.term)[None, :] == prop_slot[:, None]
+    is_target = _slot_ids(st, c0)[None, :] == prop_slot[:, None]
     is_ldr = active & is_target & (st.state == LEADER)
     tail = st.last_index - st.commit
     room = (cfg.window // 2 - tail).clamp_min(0)
@@ -469,21 +510,22 @@ def _apply_proposals(st: GroupState, cfg: KernelConfig,
     st = _write_terms(st, cfg, anchor=st.last_index, terms=terms,
                       lo=st.last_index + 1, count=cnt, mask=cnt > 0)
     st = st._replace(last_index=st.last_index + cnt)
-    return _set_self_progress(st)
+    return _set_self_progress(st, c0)
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: quorum commit
 # ---------------------------------------------------------------------------
 
-def _quorum_commit(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
-                   lead_term0: torch.Tensor) -> GroupState:
-    G, P = st.term.shape
-    eye = _eye(P, st.term)
+def _quorum_commit(st: GroupState, cfg: KernelConfig, lead_term0: torch.Tensor,
+                   blk: _Blk) -> GroupState:
+    G, Pb = st.term.shape
+    P = st.match.shape[2]
+    eye = _self_eye(st, blk.c0)
     mrow = _where(eye, st.last_index[..., None], st.match)
-    mrow = _where(active[:, None, :], mrow, -1)
+    mrow = _where(blk.mask[:, None, :], mrow, -1)
     topk = torch.topk(mrow, P, dim=-1, sorted=True).values  # descending
-    qidx = (quorum(st) - 1)[:, None, None].expand(G, P, 1)
+    qidx = (blk.qr - 1)[:, None, None].expand(G, Pb, 1)
     mci = ring_lookup(topk, qidx)[..., 0]
     # Only entries of the leader's own term commit by counting; a leader
     # demoted during the message phase still commits for the term it led
@@ -500,15 +542,16 @@ def _quorum_commit(st: GroupState, cfg: KernelConfig, active: torch.Tensor,
 
 def _assemble_sends(st: GroupState, cfg: KernelConfig, resp: torch.Tensor,
                     hb_fire_term: torch.Tensor, vote_fire_term: torch.Tensor,
-                    active: torch.Tensor, resolve=ring_resolve
+                    active: torch.Tensor, blk: _Blk, resolve=ring_resolve
                     ) -> Tuple[GroupState, torch.Tensor]:
     """Build the outbox (G, P_from, P_to, F) and apply optimistic progress
     updates for sent appends."""
-    G, P = st.term.shape
+    G, Pb = st.term.shape
+    P = st.match.shape[2]
     F = cfg.fields
     E = cfg.max_ents
-    eye = _eye(P, st.term)
-    tgt_ok = active[:, None, :] & active[:, :, None] & ~eye
+    eye = _self_eye(st, blk.c0)
+    tgt_ok = blk.mask[:, None, :] & active[:, :, None] & ~eye
 
     # ---- appends ------------------------------------------------------------
     is_ldr = (st.state == LEADER)[..., None]
@@ -539,9 +582,9 @@ def _assemble_sends(st: GroupState, cfg: KernelConfig, resp: torch.Tensor,
 
     prev_term = _terms_at_many(st, cfg, prev, resolve)  # (G, P, P)
 
-    out = torch.zeros((G, P, P, F), dtype=I32, device=st.term.device)
-    term_b = st.term[..., None].expand(G, P, P)
-    commit_b = st.commit[..., None].expand(G, P, P)
+    out = torch.zeros((G, Pb, P, F), dtype=I32, device=st.term.device)
+    term_b = st.term[..., None].expand(G, Pb, P)
+    commit_b = st.commit[..., None].expand(G, Pb, P)
 
     def put(mask, field, val):
         out[..., field] = _where(mask, val, out[..., field])
@@ -577,8 +620,8 @@ def _assemble_sends(st: GroupState, cfg: KernelConfig, resp: torch.Tensor,
     last_t = _last_term(st, cfg)
     put(send_vote, F_TYPE, M_VOTE)
     put(send_vote, F_TERM, term_b)
-    put(send_vote, F_INDEX, last.expand(G, P, P))
-    put(send_vote, F_LOGTERM, last_t[..., None].expand(G, P, P))
+    put(send_vote, F_INDEX, last.expand(G, Pb, P))
+    put(send_vote, F_LOGTERM, last_t[..., None].expand(G, Pb, P))
 
     # ---- responses override everything (drop-on-collision is safe) ---------
     has_resp = resp[..., F_TYPE] != M_NONE
@@ -611,9 +654,12 @@ def step(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _quiet_pred(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
-                active: torch.Tensor, tick: bool) -> torch.Tensor:
+                active: torch.Tensor, tick: bool,
+                n_lead=None) -> torch.Tensor:
     """() bool tensor: nothing this round can need the sequential message
-    phases. Conservative — false negatives only cost a slow round."""
+    phases. Conservative — false negatives only cost a slow round.
+    `n_lead` (G,), the leaders of each group over every peer column,
+    defaults to the count over this block's columns."""
     mtype = inbox[..., F_TYPE]
     present = mtype != M_NONE
     vote_ish = present & ((mtype == M_VOTE) | (mtype == M_VOTE_RESP))
@@ -621,11 +667,26 @@ def _quiet_pred(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
     is_c = active & (st.state == CANDIDATE)
     could_campaign = (active & (st.state != LEADER)
                       & (st.elapsed + 1 >= cfg.election_tick) & bool(tick))
-    n_lead = (active & (st.state == LEADER)).sum(dim=1, dtype=I32)
+    if n_lead is None:
+        n_lead = (active & (st.state == LEADER)).sum(dim=1, dtype=I32)
     pending_host = st.need_host != 0
     return ~(vote_ish.any() | term_mism.any() | is_c.any()
              | could_campaign.any() | (n_lead > 1).any()
              | pending_host.any())
+
+
+def _quiet(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
+           active: torch.Tensor, tick: bool, blk: _Blk) -> bool:
+    """The hop's branch, read on the host once. On a block: the leaders of
+    each group summed over the peers cells, then one "any" over every
+    cell of the mesh, so all blocks take the branch JAX's single
+    `lax.cond` takes."""
+    if blk.comm is None:
+        return bool(_quiet_pred(st, cfg, inbox, active, tick))
+    n_lead = blk.comm.sum_peers(
+        (active & (st.state == LEADER)).sum(dim=1, dtype=I32))
+    return not blk.comm.any(
+        ~_quiet_pred(st, cfg, inbox, active, tick, n_lead))
 
 
 def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
@@ -633,7 +694,8 @@ def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
                 ) -> Tuple[GroupState, torch.Tensor]:
     """One-pass message processing for quiescent rounds; returns (state,
     resp) with resp shaped (G, P, P, F) like the full path's."""
-    G, P = st.term.shape
+    G, Pb = st.term.shape
+    P = inbox.shape[2]
     F = cfg.fields
     mtype_all = inbox[..., F_TYPE]
     is_l = st.state == LEADER
@@ -680,7 +742,7 @@ def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
     s_idx = _first_true(fm, dim=2)                              # (G, P)
     onehot_s = _ar(P, st.term)[None, None, :] == s_idx[..., None]
     msg = torch.gather(inbox, 2,
-                       s_idx[..., None, None].long().expand(G, P, 1, F))
+                       s_idx[..., None, None].long().expand(G, Pb, 1, F))
     msg = _where(has_fm[..., None], msg[:, :, 0, :], 0)        # (G, P, F)
     mtype = _where(has_fm, msg[..., F_TYPE], M_NONE)
     mindex = msg[..., F_INDEX]
@@ -689,7 +751,7 @@ def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
     mnent = msg[..., F_NENT]
     ent_terms = msg[..., N_FIXED_FIELDS:]
 
-    resp_f = torch.zeros((G, P, F), dtype=I32, device=st.term.device)
+    resp_f = torch.zeros((G, Pb, F), dtype=I32, device=st.term.device)
     a = has_fm & (mtype == M_APP)
     h = has_fm & (mtype == M_HB)
     st = st._replace(
@@ -745,16 +807,21 @@ def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
 def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
                prop_count: torch.Tensor, prop_slot: torch.Tensor,
                tick: bool, quiet: bool, force_hb: bool = False,
-               resolve=ring_resolve) -> Tuple[GroupState, torch.Tensor]:
+               resolve=ring_resolve, blk=None
+               ) -> Tuple[GroupState, torch.Tensor]:
     """Shared round skeleton; `quiet` selects the message-phase
     implementation. prop_slot=None selects per-slot proposal admission
     (prop_count is then (G, P), the multi-host engine's input).
     `force_hb` makes every active leader broadcast a heartbeat this pass
-    (the ReadIndex step's quorum solicitation)."""
+    (the ReadIndex step's quorum solicitation). `blk` is the block the
+    round runs on (default: every column)."""
+    if blk is None:
+        blk = _block(st, 0, None)
     active = active_mask(st)
-    P = st.term.shape[1]
+    G, Pb = st.term.shape
+    P = inbox.shape[2]
     st = st._replace(ack_age=(st.ack_age + 1).clamp_max(1 << 20))
-    st, hb_fire, vote_fire = _tick(st, cfg, active, tick)
+    st, hb_fire, vote_fire = _tick(st, cfg, active, tick, blk)
     if force_hb:
         ldr = active & (st.state == LEADER)
         hb_fire = _where(ldr, st.term, hb_fire)
@@ -764,19 +831,20 @@ def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
     if quiet:
         st, resp = _quiet_msgs(st, cfg, inbox, active, resolve)
     else:
-        resp = torch.zeros((st.term.shape[0], P, P, cfg.fields), dtype=I32,
+        resp = torch.zeros((G, Pb, P, cfg.fields), dtype=I32,
                            device=st.term.device)
         for q in range(P):
             st, r = _step_msgs_from(st, cfg, q, inbox[:, :, q, :], active,
-                                    resolve)
+                                    blk, resolve)
             resp[:, :, q, :] = r
     if prop_slot is None:
-        st = _apply_proposals_slots(st, cfg, prop_count, active)
+        st = _apply_proposals_slots(st, cfg, prop_count, active, blk.c0)
     else:
-        st = _apply_proposals(st, cfg, prop_count, prop_slot, active)
-    st = _quorum_commit(st, cfg, active, lead_term0)
+        st = _apply_proposals(st, cfg, prop_count, prop_slot, active,
+                              blk.c0)
+    st = _quorum_commit(st, cfg, lead_term0, blk)
     st, outbox = _assemble_sends(st, cfg, resp, hb_fire, vote_fire, active,
-                                 resolve)
+                                 blk, resolve)
     bad = active & (st.commit > st.last_index)
     st = st._replace(need_host=_flag(st.need_host, bad, NH_VIOLATION))
     return st, outbox
@@ -784,29 +852,42 @@ def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
 
 def _hop(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
          prop_count: torch.Tensor, prop_slot: torch.Tensor, tick: bool,
-         force_hb: bool, resolve) -> Tuple[GroupState, torch.Tensor]:
+         force_hb: bool, resolve, blk: _Blk
+         ) -> Tuple[GroupState, torch.Tensor]:
     """One message-phase+routing pass with the fast path selected by one
     host read of the quiescence predicate (exactly one branch runs)."""
-    quiet = bool(_quiet_pred(st, cfg, inbox, active_mask(st), tick))
+    quiet = _quiet(st, cfg, inbox, active_mask(st), tick, blk)
     s, out = _step_body(cfg, st, inbox, prop_count, prop_slot, tick,
-                        quiet=quiet, force_hb=force_hb, resolve=resolve)
-    return s, route_local(out)
+                        quiet=quiet, force_hb=force_hb, resolve=resolve,
+                        blk=blk)
+    if blk.comm is None:
+        return s, route_local(out)
+    return s, route_block(out, blk.comm)
 
 
 def step_routed_auto(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
                      prop_count: torch.Tensor, prop_slot: torch.Tensor,
                      tick: bool, drop_mask=None, hops: int = 1,
-                     resolve=ring_resolve) -> Tuple[GroupState, torch.Tensor]:
+                     resolve=ring_resolve, c0: int = 0,
+                     comm=None) -> Tuple[GroupState, torch.Tensor]:
     """step + route_local with fast-path selection per hop. `hops` chains
     that many message-phase+routing passes: proposals and the tick fire
     only on the first hop, so `hops=H` equals H successive 1-hop calls
     whose last H-1 carry no proposals and no tick. `drop_mask`
     (G, P_to, P_from, 1) int32 is applied to the routed inbox after every
-    hop (fault injection)."""
+    hop (fault injection).
+
+    On a block (`c0`, `comm`; see the module docstring) st holds peer
+    columns [c0, c0 + Pb) of a block of groups, inbox is (Gb, Pb, P, F),
+    prop_count/prop_slot are the block's groups and drop_mask its
+    (Gb, Pb, P, 1) slice; the result is the block of the unsharded
+    round's result."""
+    blk = _block(st, c0, comm)
     zero = torch.zeros_like(prop_count)
     for h in range(hops):
         st, inbox = _hop(cfg, st, inbox, prop_count if h == 0 else zero,
-                         prop_slot, bool(tick) and h == 0, False, resolve)
+                         prop_slot, bool(tick) and h == 0, False, resolve,
+                         blk)
         if drop_mask is not None:
             inbox = inbox * drop_mask
     return st, inbox
@@ -816,6 +897,19 @@ def route_local(outbox: torch.Tensor) -> torch.Tensor:
     """Single-host message routing: outbox[g, from, to] -> inbox[g, to,
     from], a transpose of the peer axes (materialized contiguous)."""
     return outbox.transpose(1, 2).contiguous()
+
+
+def route_block(outbox: torch.Tensor, comm) -> torch.Tensor:
+    """route_local across the peers cells: this block's outbox
+    (G, Pb_from, P_to, F) goes out as one chunk per receiving cell j
+    (its Pb target columns), laid out (Pc, G, Pb_from, Pb_to, F) for one
+    all-to-all; the chunks received from every cell j form the inbox
+    (G, Pb_to, P_from, F) with sender column j * Pb + f."""
+    G, Pb, P, F = outbox.shape
+    Pc = comm.peers
+    send = outbox.reshape(G, Pb, Pc, Pb, F).permute(2, 0, 1, 3, 4)
+    recv = comm.all_to_all(send.contiguous())     # (Pc, G, Pb_f, Pb_t, F)
+    return recv.permute(1, 3, 0, 2, 4).reshape(G, Pb, Pc * Pb, F)
 
 
 def step_routed(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
@@ -836,15 +930,23 @@ def _at_slot(x: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, slot[:, None].long())[:, 0]
 
 
-def _read_register(st: GroupState, cfg: KernelConfig):
+def _read_register(st: GroupState, cfg: KernelConfig, blk: _Blk):
     """Register a batched ReadIndex for every group: (read_slot,
     read_term, read_commit, has_ldr), all (G,). has_ldr also requires the
-    leader to have committed an entry of its own term."""
+    leader to have committed an entry of its own term. On a block the
+    three columns it needs are gathered from every peers cell first, so
+    the argmax's ties break to the first slot, as in JAX."""
     lead_term = _where(active_mask(st) & (st.state == LEADER), st.term, 0)
+    commit = st.commit
+    commit_term = term_at(st, cfg, st.commit)
+    if blk.comm is not None:
+        cols = blk.comm.gather_peers(
+            torch.stack([lead_term, commit, commit_term], dim=2))
+        lead_term, commit, commit_term = cols.unbind(2)
     read_term = lead_term.amax(dim=1)
     read_slot = _first_true(lead_term == read_term[:, None], dim=1)
-    read_commit = _at_slot(st.commit, read_slot)
-    commit_term = _at_slot(term_at(st, cfg, st.commit), read_slot)
+    read_commit = _at_slot(commit, read_slot)
+    commit_term = _at_slot(commit_term, read_slot)
     has_ldr = (read_term > 0) & (commit_term == read_term)
     return read_slot, read_term, read_commit, has_ldr
 
@@ -853,34 +955,48 @@ def step_routed_read_auto(cfg: KernelConfig, st: GroupState,
                           inbox: torch.Tensor, prop_count: torch.Tensor,
                           prop_slot: torch.Tensor, tick: bool,
                           drop_mask=None, hops: int = 1,
-                          resolve=ring_resolve):
+                          resolve=ring_resolve, c0: int = 0, comm=None):
     """step_routed_auto plus a batched ReadIndex pass: returns (st, inbox,
     confirmed (G,) bool, read_commit (G,) int32).
 
     Each group's leader registers the read at invocation start, hop 0
     forces a heartbeat broadcast, and every hop counts the heartbeat /
     append responses routed back to the leader slot at the registered
-    term. Only messages produced inside this invocation are counted."""
-    G, P = st.term.shape
-    read_slot, read_term, read_commit, has_ldr = _read_register(st, cfg)
-    oh_lead = _ar(P, st.term)[None, :] == read_slot[:, None]   # (G, P)
+    term. Only messages produced inside this invocation are counted.
+
+    On a block (see step_routed_auto) the block holding the leader's row
+    counts its acks; the counts and the leader's standing are summed over
+    the peers cells, so every cell returns the same (Gb,) results."""
+    G, Pb = st.term.shape
+    P = inbox.shape[2]
+    blk = _block(st, c0, comm)
+    read_slot, read_term, read_commit, has_ldr = _read_register(st, cfg,
+                                                                blk)
+    local = read_slot - c0
+    owns = (local >= 0) & (local < Pb)           # the leader's row is here
+    lrow = local.clamp(0, Pb - 1)
+    oh_lead = _ar(P, st.term)[None, :] == read_slot[:, None]   # (G, P_from)
     acks = torch.zeros((G, P), dtype=torch.bool, device=st.term.device)
     zero = torch.zeros_like(prop_count)
     rows = torch.arange(G, device=st.term.device)
     for h in range(hops):
         st, inbox = _hop(cfg, st, inbox, prop_count if h == 0 else zero,
-                         prop_slot, bool(tick) and h == 0, h == 0, resolve)
+                         prop_slot, bool(tick) and h == 0, h == 0, resolve,
+                         blk)
         if drop_mask is not None:
             inbox = inbox * drop_mask
-        to_lead = inbox[rows, read_slot.long()]                # (G, P_from, F)
+        to_lead = inbox[rows, lrow.long()]                 # (G, P_from, F)
         mt = to_lead[..., F_TYPE]
         fresh = (((mt == M_HB_RESP) | (mt == M_APP_RESP))
                  & (to_lead[..., F_TERM] == read_term[:, None]))
-        acks = acks | fresh
+        acks = acks | (fresh & owns[:, None])
     n_acks = (acks & ~oh_lead).sum(dim=1, dtype=I32)
-    still = ((_at_slot(st.state, read_slot) == LEADER)
-             & (_at_slot(st.term, read_slot) == read_term))
-    confirmed = has_ldr & still & (n_acks + 1 >= quorum(st))
+    still = (owns & (_at_slot(st.state, lrow) == LEADER)
+             & (_at_slot(st.term, lrow) == read_term))
+    if comm is not None:
+        tally = comm.sum_peers(torch.stack([n_acks, still.to(I32)], dim=1))
+        n_acks, still = tally[:, 0], tally[:, 1] > 0
+    confirmed = has_ldr & still & (n_acks + 1 >= blk.qr)
     return st, inbox, confirmed, read_commit
 
 
@@ -937,7 +1053,7 @@ def step_routed_slots(cfg: KernelConfig, st: GroupState,
 def step_routed_slots_auto(cfg: KernelConfig, st: GroupState,
                            inbox: torch.Tensor, cnt_gp: torch.Tensor,
                            tick: bool, drop_mask=None, hops: int = 1,
-                           resolve=ring_resolve
+                           resolve=ring_resolve, c0: int = 0, comm=None
                            ) -> Tuple[GroupState, torch.Tensor]:
     """step_routed_slots with the quiescent fast path and the same
     multi-hop/drop-mask machinery as step_routed_auto (this is that
@@ -947,9 +1063,11 @@ def step_routed_slots_auto(cfg: KernelConfig, st: GroupState,
     peers live on independently failing hosts. With hops>1 the leader
     counts follower acks produced on the device before those followers'
     hosts journaled the entries, so a follower-host crash could lose an
-    acked write."""
+    acked write.
+
+    On a block (see step_routed_auto) cnt_gp is the block's (Gb, Pb)."""
     return step_routed_auto(cfg, st, inbox, cnt_gp, None, tick, drop_mask,
-                            hops, resolve)
+                            hops, resolve, c0, comm)
 
 
 _STEPS = {

@@ -12,7 +12,8 @@ CUDA tensors launch `csrc/ring_resolve.cu` (built by nvcc at first use,
 bound with ctypes) or raise; CPU tensors take `ring_resolve_ref`. The
 launch geometry is `launch_plan`, a pure function. The wrapper counts
 its launches in `ring_resolve.launches` and, per instantiation of the
-kernel, in `ring_resolve.launches_by_variant`. `launch_floor` takes the
+kernel, in `ring_resolve.launches_by_variant` (under a lock: the cells
+of an in-process device mesh call it from their own threads). `launch_floor` takes the
 wrapper's whole path with an empty kernel in place of the resolve.
 """
 from __future__ import annotations
@@ -148,6 +149,7 @@ def _words(rows: int, te: int, w: int, device: int, empty: bool) -> tuple:
 
 _I32 = torch.int32
 _tls = threading.local()    # each thread's packed pointer arguments
+_count_lock = threading.Lock()
 
 
 def _check(ring: torch.Tensor, idx: torch.Tensor, last: torch.Tensor):
@@ -209,8 +211,9 @@ def _resolve(ring: torch.Tensor, idx: torch.Tensor, last: torch.Tensor,
     variant, words = _words(G * P, n // (G * P), W, idx.get_device(), empty)
     _launch(ring, idx, last, out, words)
     if not empty:
-        ring_resolve.launches += 1
-        ring_resolve.launches_by_variant[variant] += 1
+        with _count_lock:       # the cells of a device mesh are threads
+            ring_resolve.launches += 1
+            ring_resolve.launches_by_variant[variant] += 1
     return out
 
 

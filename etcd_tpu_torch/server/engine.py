@@ -42,8 +42,11 @@ real P-member cluster at that instant. This engine is the
 single-host/multi-tenant serving path.
 
 Device rule: every tensor lives on EngineConfig.device ("cuda" unless the
-caller asks for "cpu"); host mirrors (h_*) are numpy copies, so applier
-threads never touch device tensors. The WAL, geometry.json and checkpoint
+caller asks for "cpu"), or, with EngineConfig.mesh, on the mesh's cells
+(parallel/mesh.py: each field is a `Sharded`, one block per cell, and the
+round runs on every cell in lockstep, routing between cells by
+all-to-all); host mirrors (h_*) are numpy copies, so applier threads
+never touch device tensors. The WAL, geometry.json and checkpoint
 formats are the JAX engine's, byte for byte: a data dir written by either
 engine restarts in the other.
 
@@ -183,6 +186,12 @@ class EngineConfig:
     # RemoveGroup (reference raft/multinode.go:181-218), without
     # recompilation: the kernel shape is the POOL, liveness is the mask.
     initial_tenants: Optional[int] = None
+    # Optional parallel.mesh.Mesh with ("groups", "peers") axes: the
+    # kernel state shards over it and the per-hop message routing becomes
+    # an all-to-all between the cells of a groups row — the multi-device
+    # serving path. The state then lives on the mesh's devices and
+    # `device` is ignored. None = one device.
+    mesh: Any = None
     # Where the consensus state lives and the rounds run: "cuda" (the
     # card; the default) or "cpu" (tests). A "cuda" engine on a machine
     # without a card refuses to start.
@@ -247,7 +256,8 @@ class EngineConfig:
     # G=100k, copied over PCIe every round otherwise). Rounds that change
     # more rows than compact_cap — or that raise need_host — fall back to
     # the full readback, so saturated throughput is untouched. None =
-    # auto (enabled).
+    # auto (enabled when mesh is None); the mesh path keeps the full
+    # readback.
     compact_readback: Optional[bool] = None
     # Max changed+staged rows served by the gather path before a round
     # falls back to full readback. 0 = auto: max(2048, G*P//8).
@@ -335,7 +345,10 @@ class MultiEngine:
 
         assert LEADER == _LEADER
         self._torch, self._kernel = torch, kernel
-        self.device = torch.device(cfg.device)
+        # On a mesh the engine's own tensors (proposal counts, the drop
+        # mask) start on the first cell's device; each cell takes its part.
+        self.device = torch.device(cfg.device if cfg.mesh is None
+                                   else cfg.mesh.devices[0][0])
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -357,14 +370,29 @@ class MultiEngine:
         # bit-identical trajectories. cfg.hops chains propose -> replicate
         # -> commit inside one call; the drop mask rides into the round so
         # fault injection cuts every hop.
+        # On a mesh (parallel/mesh.py) each round runs on every cell's
+        # block in lockstep, one thread per cell.
+        # comm_stats counts one cell's comm calls and their wall time.
+        self.comm_stats = None
+        if cfg.mesh is not None:
+            from etcd_tpu_torch.parallel.comm import CommStats
+            self.comm_stats = CommStats()
+
         def _round(fn):
+            if cfg.mesh is not None:
+                from etcd_tpu_torch.parallel.mesh import mesh_round
+                return lambda st, inbox, pc, ps, t: mesh_round(
+                    fn, self.kcfg, st, inbox, pc, ps, t, self._drop(),
+                    self.cfg.hops, stats=self.comm_stats)
             return lambda st, inbox, pc, ps, t: fn(
                 self.kcfg, st, inbox, pc, ps, t, self._drop(),
                 self.cfg.hops)
 
         self._step_fn = _round(kernel.step_variant("step_routed_auto"))
         self._compact = (cfg.compact_readback if cfg.compact_readback
-                         is not None else True)
+                         is not None else cfg.mesh is None)
+        if cfg.mesh is not None:
+            self._compact = False    # see EngineConfig.compact_readback
         self._compact_cap = cfg.compact_cap or max(2048, G * P // 8)
         # Set whenever device state was mutated WITHOUT updating the
         # h_* mirrors (the snapshot-install surgery leaves mirrors stale
@@ -511,6 +539,11 @@ class MultiEngine:
             self.h_mask = _host(self.st.peer_mask)
         self.inbox = torch.zeros((G, P, P, self.kcfg.fields),
                                  dtype=torch.int32, device=self.device)
+        if cfg.mesh is not None:
+            from etcd_tpu_torch.parallel.mesh import (shard_mailbox,
+                                                      shard_state)
+            self.st = shard_state(self.st, cfg.mesh)
+            self.inbox = shard_mailbox(self.inbox, cfg.mesh)
         # Chaos hook: (G, P_to, P_from, 1)-broadcastable 0/1 mask applied to
         # the routed inbox (tests inject drops/partitions here); a numpy
         # array or a tensor.
@@ -601,11 +634,17 @@ class MultiEngine:
     def _dev(self, name: str, arr) -> Any:
         """Host array -> a fresh tensor on the engine's device, in the
         dtype of state field `name` (the int64-carried prng lanes
-        included)."""
+        included); on a mesh, sharded in the field's layout (host-surgery
+        writebacks keep every field in its cells)."""
         torch = self._torch
         dtype = (torch.bool if name in ("paused", "peer_mask") else
                  torch.int64 if name == "prng" else torch.int32)
-        return torch.tensor(np.asarray(arr), dtype=dtype, device=self.device)
+        x = torch.tensor(np.asarray(arr), dtype=dtype, device=self.device)
+        if self.cfg.mesh is not None:
+            from etcd_tpu_torch.parallel.mesh import Sharded, state_sharding
+            x = Sharded.split(self.cfg.mesh, x,
+                              getattr(state_sharding(self.cfg.mesh), name))
+        return x
 
     # ------------------------------------------------------------------
     # restore

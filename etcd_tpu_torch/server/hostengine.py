@@ -1,30 +1,50 @@
-"""HostEngine: the multi-host MultiEngine on the frames data plane — N
-processes, each owning one peer-slot column of every Raft group.
+"""HostEngine: the multi-host MultiEngine — N processes, each owning one
+peer-slot column of every Raft group, on one of two data planes.
 
-The counterpart of the JAX package's `server/hostengine.py` with
-`data_plane="frames"`, its host logic copied as it is. Every host steps
-the full (G, P) slots round (`ops/kernel.py::step_routed_slots_auto`,
-hops=1) on its own device ("cuda" unless the config says "cpu"), is
-authoritative for its own slot column only, and exchanges the per-round
-mailbox rows of its column with the other hosts over the frame transport
-(parallel/frames.py), together with what the reference moves over
-rafthttp: forwarded client proposals, entry payload fan-out, payload
-catch-up pulls and snapshot images. No collective and no process group:
-hosts fail independently like reference members (rafthttp peers,
-peer.go:87-190) — a dead host's frames just stop, its groups re-elect
-among the survivors within the election timeout, and a quorum keeps
-committing throughout (raft.go:323-332). The dead host rejoins by
-restarting on its own data dir, or on an empty one fenced by the
-supervisor's term floor (see _load_term_floor) through the cross-host
-snapshot-install path. Several engines can share one process and one
-device (the tests do; five rank processes share one card in
-chip_smoke.py).
+The counterpart of the JAX package's `server/hostengine.py`, its host
+logic copied as it is. Host h owns peer slot h of every group and steps
+the slots round (`ops/kernel.py::step_routed_slots_auto`, hops=1) on its
+own device ("cuda" unless the config says "cpu"). What the reference
+moves over rafthttp that is not index metadata rides the frame transport
+(parallel/frames.py): forwarded client proposals, entry payload fan-out,
+payload catch-up pulls and snapshot images. The consensus metadata
+(votes, appends, acks) rides one of two data planes:
+
+- "collective" (the default, as in the JAX package): the hosts are the
+  peers axis of a (1, P) mesh. Each host holds only its own column,
+  (G, 1, ...) with the target-peer axis whole, and steps the round on
+  that block with a `ProcessComm` (parallel/comm.py) on the
+  `torch.distributed` process group (world = peers, rank = host id):
+  the mailbox is an all-to-all per round, the quiescence vote and the
+  peer_mask gather are collectives too. A dead host stalls every group
+  until the supervisor restarts the whole job; each host then replays
+  its own WAL. Quorum GETs at a leader column take the zero-append read
+  plane (_quorum_read / _confirm_reads).
+- "frames": every host steps the full (G, P) round on its own device, is
+  authoritative for its own column only, and exchanges the per-round
+  mailbox rows of its column over the frame transport. No collective and
+  no process group: hosts fail independently like reference members
+  (rafthttp peers, peer.go:87-190) — a dead host's frames just stop, its
+  groups re-elect among the survivors within the election timeout, and a
+  quorum keeps committing throughout (raft.go:323-332). The dead host
+  rejoins by restarting on its own data dir, or on an empty one fenced
+  by the supervisor's term floor (see _load_term_floor) through the
+  cross-host snapshot-install path. Several frames engines can share one
+  process and one device (the tests do).
+
+Five rank processes of either plane share one card in chip_smoke.py.
 
 Durability model (reference per-member WAL, etcdserver/raft.go:112-172):
 every host journals its own slot column's per-round deltas plus every
 entry payload it admits or receives to its own EngineWAL, and fsyncs
-before it sends the round's mailbox frames — the persist-before-send
-contract (raft/doc.go:31-39). Every host applies every group's store and
+before its next round can deliver anything to another host — the
+persist-before-send contract (raft/doc.go:31-39). On the frames plane the
+round's mailbox frames are sent after the fsync. On the collective plane
+round k's outbox is exchanged by the all-to-all at the end of round k's
+step, but it is consumed by round k+1's step, whose first collective (the
+peer_mask gather, then the quiescence vote) no host passes before every
+host has entered that step, i.e. after every host's WAL append and fsync
+of round k returned. Every host applies every group's store and
 acks a client request only after its own fsync + apply, so an acked write
 is always reconstructable from the acking host's WAL alone.
 
@@ -36,17 +56,21 @@ timeout — reference peer.go:156-165 semantics).
 
 What differs from the JAX package's module:
 
-- Only the frames plane is ported. `data_plane="collective"` (the state
-  sharded over a global device mesh, the mailbox an all_to_all) raises:
-  it waits for the device mesh. The collective plane's zero-append read
-  plane goes with it; quorum GETs ride the log as QGET entries, as they
-  do on the JAX package's frames plane.
-- Device state is a GroupState of torch tensors. State surgery clones a
-  field and assigns this host's column; nothing writes into a tensor an
-  earlier state still holds. The JAX package donates the state to its
-  jitted step where the backend allows; eager PyTorch has no donation.
-- The round builds only the inbox row this host receives (to == its
-  slot) on the host, the only row the JAX package's host-built
+- Device state is a GroupState of torch tensors. State surgery builds a
+  fresh field with this host's column assigned; nothing writes into a
+  tensor an earlier state still holds. The JAX package donates the state
+  to its jitted step where the backend allows; eager PyTorch has no
+  donation.
+- The collective plane's process group is `torch.distributed`'s default
+  group, initialised by the caller (tools/multihost_engine.py does it
+  from MHE_COORD). Its round is the port's block round: the cross-host
+  points are named comm calls, where the JAX package lets XLA insert
+  them into one SPMD program.
+- hops must be 1 on both planes (the JAX package checks it on the frames
+  plane; on the collective plane it is the documented requirement of
+  step_routed_slots_auto).
+- The frames round builds only the inbox row this host receives (to ==
+  its slot) on the host, the only row the JAX package's host-built
   (G, P, P, F) inbox ever fills, and places it into a zeroed device
   inbox.
 """
@@ -72,6 +96,7 @@ from etcd_tpu_torch.server.enginewal import (EngineWAL, RoundRecord, b64_np,
 from etcd_tpu_torch.server.request import (METHOD_DELETE, METHOD_GET,
                                            METHOD_POST, METHOD_PUT,
                                            METHOD_QGET, METHOD_SYNC, Request)
+from etcd_tpu_torch.server import obs as obs_mod
 from etcd_tpu_torch.store import new_store
 from etcd_tpu_torch.store.event import LazyWriteEvent
 from etcd_tpu_torch.utils import idutil, metrics
@@ -122,15 +147,28 @@ class HostEngineConfig:
     # during a mass catch-up, e.g. a host restarting with an empty disk).
     snap_interval: float = 1.0
     snaps_per_round: int = 128
-    # Consensus data plane. Only "frames" is ported: every host runs the
-    # full (G, P) kernel on its own device, authoritative for its own
-    # peer-slot column only, and the per-round mailbox metadata rides the
-    # frame transport like payloads do (sparse-encoded per-peer slices).
-    # Each host steps P columns but exports only its own (the P-1 ghost
-    # columns evolve as message-starved candidates and are never read).
-    # "collective" (the state sharded over a global device mesh, the
-    # mailbox an all_to_all) raises until the device mesh is ported.
-    data_plane: str = "frames"
+    # Consensus data plane:
+    #   "collective" — the hosts are the peers axis of a (1, P) mesh: each
+    #     holds its own column and the votes/appends/acks ride an
+    #     all-to-all on the torch.distributed process group (gloo or
+    #     nccl; the caller initialises it). One dead host stalls EVERY
+    #     group until the supervisor restarts the whole job: availability
+    #     is traded for a dense data plane with no serialization.
+    #   "frames" — every host runs the FULL (G, P) kernel on its own
+    #     device, authoritative for its own peer-slot column only, and
+    #     the per-round mailbox metadata rides the frame transport like
+    #     payloads already do (sparse-encoded per-peer slices). No
+    #     collective, no global process group: hosts fail INDEPENDENTLY
+    #     exactly like reference members (rafthttp peers, peer.go:87-190)
+    #     — a dead host's frames just stop, its groups' leaders re-elect
+    #     among the survivors within the election timeout, and quorum
+    #     n/2+1 keeps committing throughout (raft.go:323-332 semantics).
+    #     The dead host rejoins by simply restarting: probes repair its
+    #     lag via appends, or the snapshot-install path ships images.
+    #     Cost: each host steps P columns but exports only its own (the
+    #     P-1 ghost columns evolve as message-starved candidates and are
+    #     never read), and metadata latency is frame-paced.
+    data_plane: str = "collective"
     # Where the consensus state lives and the rounds run: "cuda" (the
     # card; the default) or "cpu". A "cuda" engine on a machine without
     # a card refuses to start, before it touches the data dir.
@@ -145,15 +183,13 @@ class HostEngine:
         from etcd_tpu_torch.ops.kernel import step_routed_slots_auto
         from etcd_tpu_torch.ops.state import KernelConfig, init_state
 
-        if cfg.data_plane != "frames":
-            raise ValueError(
-                f"data_plane={cfg.data_plane!r} is not in the PyTorch port: "
-                "the collective plane waits for the device mesh (ROADMAP "
-                "A6/A7); use data_plane='frames'")
+        if cfg.data_plane not in ("collective", "frames"):
+            raise ValueError(f"data_plane={cfg.data_plane!r}: expected "
+                             "'collective' or 'frames'")
         # hops=1 keeps persist-before-send across hosts
         # (kernel.step_routed_slots_auto's durability constraint).
         if cfg.hops != 1:
-            raise ValueError("frames data plane requires hops=1 "
+            raise ValueError(f"{cfg.data_plane} data plane requires hops=1 "
                              "(persist-before-send across hosts)")
         self.device = torch.device(cfg.device)
         if self.device.type == "cuda":
@@ -174,11 +210,35 @@ class HostEngine:
             election_tick=cfg.election_tick,
             heartbeat_tick=cfg.heartbeat_tick)
         self.my_slot = cfg.host_id
+        self._frames_plane = cfg.data_plane == "frames"
+        self._comm = None
+        if not self._frames_plane:
+            # The (1, P) mesh of the collective plane: one process per
+            # peer column on the torch.distributed default group.
+            import torch.distributed as dist
+            from etcd_tpu_torch.parallel.comm import ProcessComm
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "the collective data plane needs torch.distributed "
+                    "initialised (world size = peers, rank = host_id); "
+                    "tools/multihost_engine.py does it from MHE_COORD")
+            self._comm = ProcessComm()
+            if self._comm.peers != Pn:
+                raise ValueError(
+                    f"multi-host engine needs one process per peer slot: "
+                    f"{self._comm.peers} ranks for peers={Pn}")
+            if self._comm.rank != self.my_slot:
+                raise ValueError(
+                    f"host_id {self.my_slot} must equal the process-group "
+                    f"rank {self._comm.rank} (the column order)")
         # Per-sender queues of sparse mailbox frames (bounded: a slower
         # host drops OLDEST — raft retransmits; reference drop-on-full,
-        # peer.go:156-165) + our own self-loop slice.
+        # peer.go:156-165) + our own self-loop slice (frames plane).
         self._meta_rx: Dict[int, deque] = {}
         self._self_loop: Optional[np.ndarray] = None
+        # The collective plane's routed inbox, this column's block
+        # (G, 1, P, F), kept on the device round to round.
+        self.inbox = None
 
         self._check_geometry()
         self.wal = EngineWAL(cfg.data_dir, fsync=cfg.fsync)
@@ -196,6 +256,15 @@ class HostEngine:
         self.acked_requests = 0
         self.failed: Optional[Exception] = None
         self._recent_recs: deque = deque(maxlen=8)
+        # The read plane (collective plane only; see _quorum_read):
+        # parked quorum reads awaiting a leadership confirmation, and
+        # ripe ones awaiting the apply cursor. Both under self._lock.
+        self._reads: List[deque] = [deque() for _ in range(G)]
+        self._read_dirty: set = set()
+        self._reads_waiting = 0
+        self._ripe: List[deque] = [deque() for _ in range(G)]
+        self._ripe_dirty: set = set()
+        self._ripe_waiting = 0
 
         # Local column mirrors (this host's slot of every group).
         self.l_term = np.zeros(G, np.int32)
@@ -247,6 +316,13 @@ class HostEngine:
             self._restore(base, ckpt_round, ckpt, recs, floor)
         else:
             self.st = base
+        if not self._frames_plane:
+            # Keep this host's column only: the block it steps.
+            from etcd_tpu_torch.parallel.mesh import state_block
+            my = self.my_slot
+            self.st = state_block(self.st, 0, None, my, my + 1)
+            self.inbox = torch.zeros((G, 1, Pn, self.kcfg.fields),
+                                     dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
     # boot / restore
@@ -516,16 +592,24 @@ class HostEngine:
 
     def _local(self, arr) -> np.ndarray:
         """This host's peer-slot column of a state tensor as numpy, shape
-        (G, 1, ...): one device-to-host read of the slice."""
+        (G, 1, ...): one device-to-host read (the whole block on the
+        collective plane, a slice on the frames plane)."""
+        if not self._frames_plane:
+            return arr.cpu().numpy()
         my = self.my_slot
         return arr[:, my:my + 1].cpu().numpy()
 
     def _set_local(self, name: str, block: np.ndarray):
         """New tensor for state field `name` whose LOCAL column (our peer
-        slot) is `block` — shape (G, 1, ...): a clone of the current
-        field with the column assigned (the field itself, which earlier
-        states may still hold, is never written)."""
-        arr = getattr(self.st, name).clone()
+        slot) is `block` — shape (G, 1, ...). Collective plane: the block
+        itself, on the device. Frames plane: a clone of the current field
+        with the column assigned (the field itself, which earlier states
+        may still hold, is never written)."""
+        arr = getattr(self.st, name)
+        if not self._frames_plane:
+            return self._torch.tensor(np.ascontiguousarray(block),
+                                      dtype=arr.dtype, device=arr.device)
+        arr = arr.clone()
         arr[:, self.my_slot] = self._torch.as_tensor(
             block[:, 0], dtype=arr.dtype, device=arr.device)
         return arr
@@ -698,6 +782,7 @@ class HostEngine:
         self._stop_ev.set()
         if self._thread is not None:
             self._thread.join(timeout=15)
+        self._fail_parked_reads("engine stopped")
         self.frames.stop()
         self.wal.close()
 
@@ -778,9 +863,14 @@ class HostEngine:
         writes ride consensus and ack after LOCAL fsync+apply)."""
         if r.method == METHOD_GET:
             if r.quorum:
-                # Frames plane: a quorum read rides the log as a QGET
-                # entry (the zero-append read plane is the collective
-                # plane's).
+                if (not r.wait and not self._frames_plane
+                        and self.l_state[g] == _LEADER):
+                    # Zero-append read plane, collective plane only: the
+                    # collective round is globally synchronous, so
+                    # leadership confirmation needs no extra messages
+                    # (see _confirm_reads). Frames-plane hosts and
+                    # non-leader columns keep the QGET forward path.
+                    return self._quorum_read(g, r, timeout)
                 r = Request(**{**r.__dict__, "method": METHOD_QGET})
             elif r.wait:
                 return self.store(g).watch(r.path, r.recursive, r.stream,
@@ -822,6 +912,144 @@ class HostEngine:
         return result
 
     # ------------------------------------------------------------------
+    # the read plane (collective plane; see MultiEngine._quorum_read)
+    # ------------------------------------------------------------------
+
+    def _quorum_read(self, g: int, r: Request,
+                     timeout: Optional[float] = None) -> Any:
+        """Linearizable GET without a log entry: park the read, confirm
+        leadership at the next round's readback, serve from the local
+        store once the apply cursor reaches the captured commit index.
+        Quorum reads leave etcd_server_proposal_* (nothing is proposed)
+        and meter the read_index_* families."""
+        if r.id == 0:
+            r = Request(**{**r.__dict__, "id": self.reqid.next()})
+        q = self.wait.register(r.id)
+        import queue as _q
+        t0 = time.perf_counter()
+        obs_mod.read_index_parked.inc()
+        with self._lock:
+            self._reads[g].append((r.id, r))
+            self._read_dirty.add(g)
+            self._reads_waiting += 1
+        try:
+            result = q.get(timeout=timeout or self.cfg.request_timeout)
+        except _q.Empty:
+            self.wait.cancel(r.id)
+            obs_mod.read_index_failed.inc()
+            raise errors.EtcdError(errors.ECODE_RAFT_INTERNAL,
+                                   cause="quorum read timed out",
+                                   index=int(self.applied[g]))
+        finally:
+            obs_mod.read_index_parked.dec()
+        obs_mod.read_index_durations.observe(
+            (time.perf_counter() - t0) * 1000.0)
+        if isinstance(result, errors.EtcdError):
+            raise result
+        return result
+
+    def _confirm_reads(self, read_take: Dict[int, int], state, term,
+                       commit, last, ring) -> None:
+        """Collective-plane ReadIndex confirmation, against the arrays
+        just read back. Soundness: the collective round is globally
+        synchronous and lossless (the mailbox transpose is one
+        all-to-all inside the round), so a column still reading LEADER
+        after round k proves no higher-term leader has committed
+        anything through round k — its campaign traffic would have
+        reached every column (including ours, flipping us to follower)
+        at least one full round before its first possible own-term
+        commit. The leader must additionally hold its own-term entry
+        committed (the reference ReadIndex precondition, raft §8): a
+        fresh leader's commit mirror may still lag writes the previous
+        leader acked. Deposed columns FAIL their parked reads — the
+        client retries through the forward path; nothing is ever served
+        at a stale index."""
+        W = self.cfg.window
+        failed: List[Tuple[int, int]] = []
+        confirmed = 0
+        with self._lock:
+            for g, take in read_take.items():
+                dq = self._reads[g]
+                take = min(take, len(dq))
+                c = int(commit[g])
+                own_term = (state[g] == _LEADER and c >= 1
+                            and c > int(last[g]) - W
+                            and int(ring[g, c % W]) == int(term[g]))
+                if own_term:
+                    confirmed += 1
+                    for _ in range(take):
+                        self._ripe[g].append(dq.popleft() + (c,))
+                    if take:
+                        self._ripe_dirty.add(g)
+                        self._ripe_waiting += take
+                        self._reads_waiting -= take
+                elif state[g] != _LEADER:
+                    for _ in range(take):
+                        rid, _r = dq.popleft()
+                        failed.append((rid, g))
+                    self._reads_waiting -= take
+                # else: leader, own-term entry not committed yet — the
+                # parked reads retry at the next round's readback.
+                if not dq:
+                    self._read_dirty.discard(g)
+        obs_mod.read_index_confirms.observe(confirmed)
+        for rid, g in failed:
+            self.wait.trigger(rid, errors.EtcdError(
+                errors.ECODE_RAFT_INTERNAL,
+                cause="leadership lost during quorum read",
+                index=int(self.applied[g])))
+
+    def _serve_ripe_reads(self) -> None:
+        """Serve every ripe read whose group's apply cursor reached its
+        read index (the in-round apply just ran, so this is usually the
+        same round that confirmed)."""
+        served: List[Tuple[int, Request, int]] = []
+        with self._lock:
+            for g in list(self._ripe_dirty):
+                dq = self._ripe[g]
+                a = int(self.applied[g])
+                while dq and dq[0][2] <= a:
+                    rid, r, _ri = dq.popleft()
+                    served.append((rid, r, g))
+                if not dq:
+                    self._ripe_dirty.discard(g)
+            self._ripe_waiting -= len(served)
+        # Same read coalescing as MultiEngine._serve_ripe_reads: one
+        # get per distinct (group, path, recursive, sorted) serves the
+        # whole pass linearizably.
+        memo: Dict[Tuple[int, str, bool, bool], Any] = {}
+        for rid, r, g in served:
+            k = (g, r.path, r.recursive, r.sorted)
+            result = memo.get(k)
+            if result is None:
+                try:
+                    result = self.store(g).get(r.path, r.recursive,
+                                               r.sorted)
+                except errors.EtcdError as err:
+                    result = err
+                memo[k] = result
+            self.wait.trigger(rid, result)
+        if served:
+            obs_mod.read_index_served.inc(len(served))
+
+    def _fail_parked_reads(self, why: str) -> None:
+        rids: List[int] = []
+        with self._lock:
+            for g in self._read_dirty:
+                rids.extend(rid for rid, _r in self._reads[g])
+                self._reads[g].clear()
+            for g in self._ripe_dirty:
+                rids.extend(rid for rid, _r, _i in self._ripe[g])
+                self._ripe[g].clear()
+            self._read_dirty.clear()
+            self._ripe_dirty.clear()
+            self._reads_waiting = 0
+            self._ripe_waiting = 0
+        for rid in rids:
+            self.wait.trigger(rid, errors.EtcdError(
+                errors.ECODE_RAFT_INTERNAL, cause=why))
+
+    # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
 
@@ -835,6 +1063,12 @@ class HostEngine:
                 if self.cfg.round_interval:
                     time.sleep(self.cfg.round_interval)
         except Exception as e:  # noqa: BLE001
+            if self._stop_ev.is_set() and self._comm is not None:
+                # Stopping, and another rank left the collective first:
+                # the round it broke was never journaled or acked.
+                log.info("host-engine %d: collective closed while "
+                         "stopping (%s)", self.my_slot, e)
+                return
             self.failed = e
             self._stop_ev.set()
             log.exception("host-engine %d loop failed", self.my_slot)
@@ -899,46 +1133,70 @@ class HostEngine:
             self.frames.send(lead_host, {"t": "prop", "g": g, "hops": hops},
                              _pack_items(items))
 
-        # -- 2. the consensus round: the local full-(G, P) kernel, the
-        # mailbox riding frames -------------------------------------------
+        # -- 1b. read plane: pin which parked quorum reads this round's
+        # confirmation covers (reads parking after dispatch could
+        # postdate writes acked above the commit index this round
+        # captures — they wait for their own round; see
+        # MultiEngine.run_round).
+        read_take: Optional[Dict[int, int]] = None
+        if self._reads_waiting:
+            with self._lock:
+                if self._reads_waiting:
+                    read_take = {g: len(self._reads[g])
+                                 for g in self._read_dirty
+                                 if self._reads[g]}
+
+        # -- 2. the consensus round: this column's block through the
+        # collective comm, or the local full-(G, P) kernel with the
+        # mailbox riding frames --------------------------------------------
         my = self.my_slot
         F = self.kcfg.fields
         dev = self.device
-        # The inbox row this host receives, inbox[g, to=my, from]: the
-        # only row frames fill (ghost columns never receive).
-        inbox_my = np.zeros((G, Pn, F), np.int32)
-        if self._self_loop is not None:
-            inbox_my[:, my] = self._self_loop
-        for j, q in list(self._meta_rx.items()):
-            # Normally one frame per sender round. When a backlog built up
-            # (transient stall on our side), drain up to 4 per round —
-            # newer frames overwrite overlapping group rows (those rows are
-            # dropped packets; raft's heartbeat/probe machinery
-            # retransmits), so the queue recovers to fresh instead of
-            # serving permanently ~maxlen-round-stale mailboxes.
-            consumed = 0
-            while q and consumed < 4:
-                consumed += 1
-                try:
-                    idx, vals = _unpack_meta(q.popleft(), F)
-                except (ValueError, struct.error):
-                    log.warning("bad meta frame from host %d dropped", j)
-                    continue
-                ok = idx < G
-                inbox_my[idx[ok], j] = vals[ok]
-        cnt = np.zeros((G, Pn), np.int32)
-        cnt[:, my] = cnt_local
-        inbox = torch.zeros((G, Pn, Pn, F), dtype=torch.int32, device=dev)
-        inbox[:, my] = torch.from_numpy(inbox_my).to(dev)
-        st, inbox = self._step(self.kcfg, self.st, inbox,
-                               torch.from_numpy(cnt).to(dev), True)
-        # Our column's sends to every peer column: routed inbox[g, to,
-        # from] at from == my, read once. The rest of the routed mailbox
-        # is ghost traffic and never leaves the device; the buffer is
-        # dropped now (next round's inbox is rebuilt from frames).
-        routed_my = inbox[:, :, my, :].cpu().numpy()     # (G, P, F)
-        self._self_loop = routed_my[:, my, :]
-        inbox = None
+        routed_my = None
+        if not self._frames_plane:
+            cnt = torch.from_numpy(cnt_local[:, None].copy()).to(dev)
+            st, self.inbox = self._step(self.kcfg, self.st, self.inbox, cnt,
+                                        True, c0=my, comm=self._comm)
+        else:
+            # The inbox row this host receives, inbox[g, to=my, from]:
+            # the only row frames fill (ghost columns never receive).
+            inbox_my = np.zeros((G, Pn, F), np.int32)
+            if self._self_loop is not None:
+                inbox_my[:, my] = self._self_loop
+            for j, q in list(self._meta_rx.items()):
+                # Normally one frame per sender round. When a backlog
+                # built up (transient stall on our side), drain up to 4
+                # per round — newer frames overwrite overlapping group
+                # rows (those rows are dropped packets; raft's heartbeat/
+                # probe machinery retransmits), so the queue recovers to
+                # fresh instead of serving permanently ~maxlen-round-stale
+                # mailboxes.
+                consumed = 0
+                while q and consumed < 4:
+                    consumed += 1
+                    try:
+                        idx, vals = _unpack_meta(q.popleft(), F)
+                    except (ValueError, struct.error):
+                        log.warning("bad meta frame from host %d dropped",
+                                    j)
+                        continue
+                    ok = idx < G
+                    inbox_my[idx[ok], j] = vals[ok]
+            cnt = np.zeros((G, Pn), np.int32)
+            cnt[:, my] = cnt_local
+            inbox = torch.zeros((G, Pn, Pn, F), dtype=torch.int32,
+                                device=dev)
+            inbox[:, my] = torch.from_numpy(inbox_my).to(dev)
+            st, inbox = self._step(self.kcfg, self.st, inbox,
+                                   torch.from_numpy(cnt).to(dev), True)
+            # Our column's sends to every peer column: routed inbox[g,
+            # to, from] at from == my, read once. The rest of the routed
+            # mailbox is ghost traffic and never leaves the device; the
+            # buffer is dropped now (next round's inbox is rebuilt from
+            # frames).
+            routed_my = inbox[:, :, my, :].cpu().numpy()     # (G, P, F)
+            self._self_loop = routed_my[:, my, :]
+            inbox = None
         self.st = st
 
         # -- 3. read back OUR column --------------------------------------
@@ -1035,23 +1293,31 @@ class HostEngine:
         self.l_state, self.l_last, self.l_ring = state, last, ring
         self.l_lead = lead
 
+        # -- 4b. read plane: confirm the snapshotted reads against this
+        # round's readback (ripens them at the captured commit index;
+        # deposed columns fail theirs).
+        if read_take:
+            self._confirm_reads(read_take, state, term, commit, last,
+                                ring)
+
         # -- 5. persist BEFORE the next dispatch (cross-host contract) ----
         if not rec.is_empty():
             self.wal.append(rec)
             self._recent_recs.append(rec)
 
-        # -- 6a. ship this round's mailbox column AFTER the fsync above —
-        # the persist-before-send contract (doc.go:31-39) holds per-host
-        # exactly like the reference's Ready ordering. Sparse per-peer
-        # encoding: only groups with a live message.
-        for h in range(Pn):
-            if h == my:
-                continue
-            msgs = routed_my[:, h, :]
-            idx = np.nonzero(msgs.any(axis=1))[0]
-            if len(idx):
-                self.frames.send(h, {"t": "meta"},
-                                 _pack_meta(idx, msgs[idx]))
+        # -- 6a. frames plane: ship this round's mailbox column AFTER the
+        # fsync above — the persist-before-send contract (doc.go:31-39)
+        # holds per-host exactly like the reference's Ready ordering.
+        # Sparse per-peer encoding: only groups with a live message.
+        if routed_my is not None:
+            for h in range(Pn):
+                if h == my:
+                    continue
+                msgs = routed_my[:, h, :]
+                idx = np.nonzero(msgs.any(axis=1))[0]
+                if len(idx):
+                    self.frames.send(h, {"t": "meta"},
+                                     _pack_meta(idx, msgs[idx]))
 
         # -- 6. fan out fresh local admissions ----------------------------
         if fresh_frames:
@@ -1071,6 +1337,8 @@ class HostEngine:
 
         # -- 7. apply + ack locally ---------------------------------------
         self._apply_committed(trigger=True)
+        if self._ripe_waiting:
+            self._serve_ripe_reads()
         self._request_pulls()
 
         self.round_no += 1

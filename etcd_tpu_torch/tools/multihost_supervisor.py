@@ -2,11 +2,14 @@
 whole-job restart, per-host WAL replay, and a measured MTTR.
 
 The launcher is `python -m etcd_tpu_torch.tools.multihost_engine`
-(server/hostengine.py, frames data plane). On the frames plane ranks fail
-independently and survivors keep serving; this supervisor still treats a
-rank exit or a frozen round counter as a job failure: it SIGKILLs the
-whole job, respawns every rank on its own data dir (per-host WAL replay
-restores every acked write), and records the detect->serving wall time.
+(server/hostengine.py). On the collective plane one dead rank stalls the
+whole job's collective; on the frames plane ranks fail independently and
+survivors keep serving. Either way this supervisor treats a rank exit or
+a frozen round counter as a job failure: it SIGKILLs the whole job,
+respawns every rank on its own data dir (per-host WAL replay restores
+every acked write) with a fresh MHE_COORD (a new TCPStore address, so a
+generation never meets the last one's process group), and records the
+detect->serving wall time.
 Before a respawn, `prepare_dirs` writes the term floor that fences a rank
 whose data dir was lost (see its docstring and
 HostEngine._load_term_floor).
@@ -22,7 +25,8 @@ Usage:
         python -m etcd_tpu_torch.tools.multihost_supervisor
 Env knobs: MHE_STALL_S (6.0) poll window with no round progress that
 declares a stall; MHE_POLL_S (0.5); MHE_MAX_RECOVERIES (unbounded); the
-ranks read the launcher's MHE_* variables (MHE_DEVICE among them).
+ranks read the launcher's MHE_* variables (MHE_PLANE, MHE_BACKEND and
+MHE_DEVICE among them).
 """
 import json
 import os
@@ -135,13 +139,14 @@ class Supervisor:
 
     def spawn(self) -> None:
         self.prepare_dirs()
+        coord = f"127.0.0.1:{free_port()}"
         self.generation += 1
         self.procs = []
         self._logfs = []
         for r in range(self.n):
             env = dict(os.environ,
                        MHE_RANK=str(r), MHE_NHOSTS=str(self.n),
-                       MHE_DATA=self.data,
+                       MHE_COORD=coord, MHE_DATA=self.data,
                        MHE_GROUPS=str(self.groups),
                        MHE_HTTP_PORTS=",".join(map(str, self.http_ports)),
                        MHE_FRAME_PORTS=",".join(map(str, self.frame_ports)))

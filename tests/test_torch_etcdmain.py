@@ -1,7 +1,7 @@
 """The port's CLI engine mode (etcd_tpu_torch.etcdmain): mirrors of the
-engine-mode tests of tests/test_etcdmain.py, the port's own refusals (no
-card without `--engine-device cpu`, the device mesh, the member and proxy
-modes), `python -m etcd_tpu_torch` as a process, and data dirs carried
+engine-mode tests of tests/test_etcdmain.py, the engine on a device mesh
+(`--engine-mesh-peers-axis`), the port's own refusals (no card without
+`--engine-device cpu`, the member and proxy modes), `python -m etcd_tpu_torch` as a process, and data dirs carried
 between the JAX package's CLI and the port's. Every engine here runs on
 the CPU. Tolerance: exact (values read back equal the values written)."""
 import json
@@ -135,14 +135,35 @@ def test_engine_geometry_mismatch_refused(tmp_path):
 
 
 def test_engine_mesh_flag_is_refused(tmp_path, capsys):
+    """--engine-mesh-peers-axis 1 --engine-device cpu serves on a mesh
+    (one CPU cell: the state is sharded, and a data dir written on the
+    mesh restarts on it); an axis that does not divide the visible
+    devices is still refused at flag level, before the data dir."""
+    from etcd_tpu_torch.parallel.mesh import Sharded
     cfg = _engine_cfg(tmp_path / "mesh")
     cfg.engine_mesh_peers_axis = 1
-    with pytest.raises(ConfigError, match="ROADMAP A6"):
-        EngineServer(cfg)
-    assert main(["--engine-groups", "4", "--engine-mesh-peers-axis", "1",
+    s = EngineServer(cfg)
+    s.start()
+    try:
+        assert isinstance(s.engine.st.term, Sharded)
+        assert s.engine.cfg.mesh.shape == (1, 1)
+        assert s.engine.wait_leaders(60.0)
+        st, b = _put(s.client_urls[0], 1, "m", "onmesh")
+        assert st == 201 and b["node"]["value"] == "onmesh"
+    finally:
+        s.stop()
+    s2 = EngineServer(cfg)
+    s2.start()
+    try:
+        assert _get(s2.client_urls[0], 1, "m") == "onmesh"
+    finally:
+        s2.stop()
+
+    assert main(["--engine-groups", "4", "--engine-mesh-peers-axis", "2",
                  "--engine-device", "cpu",
                  "--data-dir", str(tmp_path / "mesh2")]) == 1
-    assert "ROADMAP A6" in capsys.readouterr().err
+    assert "does not divide the 1 visible devices" in \
+        capsys.readouterr().err
     assert not os.path.exists(tmp_path / "mesh2")
 
 

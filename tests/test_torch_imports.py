@@ -153,24 +153,55 @@ def test_state_defaults_to_the_card():
 
 def test_host_engine_and_launcher_default_to_the_card():
     """HostEngineConfig.device and the launcher's MHE_DEVICE default to
-    "cuda"; without a card the engine refuses before the data dir."""
+    "cuda", and the data plane to "collective" (as in the JAX package);
+    without a card the engine refuses before the data dir. A collective
+    HostEngine on the CPU constructs on a one-rank gloo process group,
+    holding its own column only."""
+    import socket
+
+    import torch.distributed as dist
+    from etcd_tpu_torch import errors
     from etcd_tpu_torch.server.hostengine import HostEngine, HostEngineConfig
     with tempfile.TemporaryDirectory() as d:
         cfg = HostEngineConfig(groups=2, peers=3, data_dir=d, host_id=0,
                                frame_listen=("127.0.0.1", 0))
         assert cfg.device == "cuda"
-        assert cfg.data_plane == "frames"
+        assert cfg.data_plane == "collective"
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present: the default runs there")
         with pytest.raises(RuntimeError, match="no CUDA device"):
             HostEngine(cfg)
         assert os.listdir(d) == []
-        with pytest.raises(ValueError, match="device mesh"):
+        # Without a process group the collective plane refuses too.
+        with pytest.raises(RuntimeError, match="torch.distributed"):
             HostEngine(HostEngineConfig(
-                groups=2, peers=3, data_dir=d, host_id=0,
-                frame_listen=("127.0.0.1", 0), data_plane="collective",
-                device="cpu"))
+                groups=2, peers=1, data_dir=d, host_id=0,
+                frame_listen=("127.0.0.1", 0), device="cpu"))
         assert os.listdir(d) == []
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+        try:
+            eng = HostEngine(HostEngineConfig(
+                groups=2, peers=1, data_dir=d, host_id=0,
+                frame_listen=("127.0.0.1", 0), device="cpu"))
+            try:
+                assert eng._comm.peers == 1 and eng._comm.backend == "gloo"
+                assert tuple(eng.st.term.shape) == (2, 1)
+                assert tuple(eng.st.match.shape) == (2, 1, 1)
+                assert tuple(eng.inbox.shape) == (2, 1, 1, eng.kcfg.fields)
+                # Membership is the peers axis: refused on this plane too.
+                with pytest.raises(errors.EtcdError):
+                    eng.conf_change(0, "add", 1)
+            finally:
+                eng.stop()
+        finally:
+            dist.destroy_process_group()
+    with tempfile.TemporaryDirectory() as d:
         # The launcher, MHE_DEVICE unset: refused, no traceback, no dir.
         env = {k: v for k, v in os.environ.items()
                if k not in ("PYTHONPATH", "MHE_DEVICE")}

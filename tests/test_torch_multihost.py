@@ -9,6 +9,7 @@ from the rank that acked it (acks fire only after the acker's own fsync
 import concurrent.futures as futs
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -23,11 +24,24 @@ G = 4
 
 
 def _free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    p = s.getsockname()[1]
-    s.close()
-    return p
+    """A free TCP port below the kernel's ephemeral range: a port taken
+    by bind(0) would be ephemeral, and any connection or bind(0) on the
+    box (other tests' HTTP clients and gloo pairs) could take it between
+    this choice and the rank's own bind."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        lo = 32768
+    for _ in range(1000):
+        port = random.randrange(10000, lo)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no free port below the ephemeral range")
 
 
 class Ranks:
@@ -200,13 +214,45 @@ def test_ranks_serve_and_survive_sigkill_of_one(tmp_path):
 
 
 def test_collective_plane_is_refused(tmp_path):
+    """The collective plane is no longer refused: one rank with
+    MHE_PLANE=collective boots on the CPU on a one-rank gloo process
+    group (MHE_COORD), leads every group, acks a write, and on SIGTERM
+    shuts down with rc 0 and its exit line."""
     env = dict(os.environ, MHE_RANK="0", MHE_NHOSTS="1",
                MHE_DATA=str(tmp_path), MHE_HTTP_PORTS=str(_free_port()),
                MHE_FRAME_PORTS=str(_free_port()), MHE_PLANE="collective",
-               MHE_DEVICE="cpu")
-    res = subprocess.run([sys.executable, "-m", MODULE], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 1, res
-    assert "collective plane waits for the device mesh" in res.stderr
-    assert "Traceback" not in res.stderr
-    assert os.listdir(tmp_path) == []
+               MHE_COORD=f"127.0.0.1:{_free_port()}", MHE_BACKEND="gloo",
+               MHE_DEVICE="cpu", MHE_GROUPS=str(G))
+    log_path = tmp_path / "rank0.log"
+    base = f"http://127.0.0.1:{env['MHE_HTTP_PORTS']}"
+    with open(log_path, "ab") as logf:
+        proc = subprocess.Popen([sys.executable, "-m", MODULE], cwd=REPO,
+                                env=env, stdout=logf,
+                                stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 60
+        while True:
+            assert proc.poll() is None, log_path.read_text()
+            try:
+                if json.loads(urllib.request.urlopen(
+                        base + "/engine/status", timeout=3).read()
+                        )["groups_with_leader"] == G:
+                    break
+            except OSError:
+                pass
+            assert time.time() < deadline, log_path.read_text()
+            time.sleep(0.2)
+        assert _put(base, 1, "c", "one")["action"] == "set"
+        assert _get(base, 1, "c")["node"]["value"] == "one"
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0, log_path.read_text()
+        out = log_path.read_text()
+        line = json.loads([ln for ln in out.splitlines()
+                           if ln.startswith('{"rank"')][-1])
+        assert line["plane"] == "collective" and line["backend"] == "gloo"
+        assert line["failed"] is None and line["device"] == "cpu"
+        assert "Traceback" not in out
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
