@@ -7,9 +7,11 @@ Drives the port's serving path at 100,000 groups × 5 peers (W=16, E=4,
 heartbeat_tick=3, hops=3, fsync on) on the card, and fails (nonzero
 exit) if any phase fails:
 
-1. device: the card's name and power limit; builds the CUDA kernels
-   (one nvcc per build, all started together) and prints ptxas's
-   registers and shared memory for each kernel instantiation.
+1. device: the card's name and power limit; the port's C host code
+   (codecs and store), built with cc by the first import of the package,
+   loaded (every HAVE_NATIVE* flag True, or the run fails); builds the
+   CUDA kernels (one nvcc per build, all started together) and prints
+   ptxas's registers and shared memory for each kernel instantiation.
 2. kernel vs plain: `ring_resolve` against `ring_resolve_ref` on the card,
    exactly equal, through every instantiation (TE=4, TE=5, generic) at
    the round's call shapes (idx (G, P, 5), (G, P, 4) and, on the CLI's
@@ -34,7 +36,10 @@ exit) if any phase fails:
 4. engine: `MultiEngine` boots, elects, acks 1,000 PUTs from side
    threads, serves their GETs and 100 quorum GETs, and after a restart
    on the same data dir reads every acked write back. The kernels'
-   launch counts are read across this phase (the main path).
+   launch counts are read across this phase (the main path). Then the
+   same again with the C host code off (the codecs' `_c_*` None and the
+   Python store): `phase_s` (record, apply), acked writes/s and ack
+   p50/p99 of both runs.
 5. http_front: the same G, P and window through the CLI's engine mode
    at its other defaults (max_ents 8, so the conflict scan takes the
    generic instantiation at idx (100000, 5, 8)), in three legs: in
@@ -46,7 +51,21 @@ exit) if any phase fails:
    again, every acked write read back as soon as it serves (local GETs
    need no re-elected leader), rc 0 on SIGTERM for both. One
    JSON line per leg: acked writes/s, ack p50/p99, rounds/s, seconds
-   per step.
+   per step. Then the three legs again with the C host code off in
+   every process (ETCD_TPU_PYSTORE=1, no C codecs, the ingress's
+   `--no-native`).
+5a. pool_serve: `python -m etcd_tpu_torch.tools.pool_serve`, two shard
+   processes of 50,000 groups each on the card (P, W, fsync on) behind
+   one router: boot seconds per shard, 1,000 PUTs and 100 quorum GETs
+   through the router, every acked write read back through it; then
+   `python -m etcd_tpu_torch.tools.ingress_serve` with two ingresses in
+   front of the router (JSON batches: the router relays no upgraded
+   channel), 1,000 PUTs striped over them, every acked write read back;
+   SIGTERM, rc 0 for both launchers, and each shard's stop line with its
+   ring_resolve launches (TE=5 and generic above zero).
+5b. tsan: `python -m etcd_tpu_torch.tools.tsan_check --if-available`,
+   the port's C under ThreadSanitizer, or a printed skip without
+   libtsan.
 6. multihost_frames: five rank processes of `python -m
    etcd_tpu_torch.tools.multihost_engine` on the one card (the frames
    data plane: G, P=5 replicas of every group, one per rank, W=16,
@@ -86,6 +105,7 @@ Needs a CUDA device; without one it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import select
@@ -110,6 +130,62 @@ SEED = 1234
 def log(phase: str, t0: float, **kv) -> None:
     print(json.dumps({"phase": phase, "s": round(time.perf_counter() - t0, 3),
                       **kv}), flush=True)
+
+
+# The entry points of the port's C that the loaders bind at import.
+C_ENTRY_POINTS = ("_c_encode", "_c_scan", "_c_pack_multi",
+                  "_c_scan_requests", "_c_format_responses")
+
+
+def native_flags() -> dict:
+    import etcd_tpu_torch.native as native
+    import etcd_tpu_torch.store as store
+    return {"HAVE_NATIVE": native.HAVE_NATIVE,
+            "HAVE_NATIVE_INGRESS": native.HAVE_NATIVE_INGRESS,
+            "HAVE_NATIVE_STORE": store.HAVE_NATIVE_STORE}
+
+
+def python_host() -> list:
+    """Turn this process's C host code off: the codecs' `_c_*` entry
+    points become None and new stores are the Python Store (what
+    ETCD_TPU_PYSTORE=1 does at import). Returns what it replaced."""
+    import etcd_tpu_torch.native as native
+    import etcd_tpu_torch.store as store
+    from etcd_tpu_torch.server import engine
+    saved = [(native, k, getattr(native, k)) for k in C_ENTRY_POINTS]
+    saved += [(engine, "_c_pack_multi", engine._c_pack_multi),
+              (store, "HAVE_NATIVE_STORE", store.HAVE_NATIVE_STORE)]
+    for mod, k, _ in saved:
+        setattr(mod, k, False if k == "HAVE_NATIVE_STORE" else None)
+    return saved
+
+
+@contextlib.contextmanager
+def host_code(native: bool):
+    """The C host code on (the default, which must have been built) or
+    off for the body of the `with`."""
+    if native:
+        flags = native_flags()
+        if not all(flags.values()):
+            raise AssertionError(f"the C host code is not loaded: {flags}")
+        yield
+        return
+    saved = python_host()
+    try:
+        yield
+    finally:
+        for mod, k, v in saved:
+            setattr(mod, k, v)
+
+
+# `python -c PY_HOST_MODULE <module> <args>`: run a module as `python -m`
+# does, with the C host code off in its process.
+PY_HOST_MODULE = ("import runpy, sys\n"
+                  "import chip_smoke\n"
+                  "chip_smoke.python_host()\n"
+                  "sys.argv[0] = sys.argv.pop(1)\n"
+                  "runpy.run_module(sys.argv[0], run_name='__main__', "
+                  "alter_sys=True)\n")
 
 
 def bound_ms(ring, idx, last) -> tuple:
@@ -548,11 +624,11 @@ def phase_small_card_vs_cpu(dev, groups=64, rounds=30):
 
 
 def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
-                 name="engine"):
+                 name="engine", native=True):
     """The serving path through MultiEngine's public entry points, on one
-    device or (`mesh`) sharded over a device mesh. Returns the
-    ring_resolve launches counted across it, in all and by
-    instantiation."""
+    device or (`mesh`) sharded over a device mesh, with the C host code
+    (codecs and store) on or off. Returns the ring_resolve launches
+    counted across it, in all and by instantiation."""
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
     from etcd_tpu_torch.server.request import Request
@@ -561,7 +637,8 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
                heartbeat_tick=3, fsync=True, stagger=True, hops=3,
                device=str(dev), mesh=mesh)
     gs = [i * groups // tenants for i in range(tenants)]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-") as d:
+    with host_code(native), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke-") as d:
         ring_resolve.launches = 0       # the main path starts here
         for k in ring_resolve.launches_by_variant:
             ring_resolve.launches_by_variant[k] = 0
@@ -612,6 +689,9 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
         rounds_w = eng.round_no - r0
         if errs or len(lat) != tenants:
             raise AssertionError(f"PUT failures: {errs[:5]}")
+        store_cls = type(eng.store(gs[0])).__name__
+        if store_cls != ("NativeStore" if native else "Store"):
+            raise AssertionError(f"native={native} served from {store_cls}")
         for g in gs:
             if eng.do(g, Request(method="GET", path="/smoke")).node.value \
                     != f"v{g}":
@@ -627,7 +707,8 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
         launches = ring_resolve.launches   # the main path ends here
         by_variant = dict(ring_resolve.launches_by_variant)
         ms = np.array(sorted(lat.values())) * 1e3
-        log(f"{name}_serve", t0, acked=len(lat), write_s=t_w,
+        log(f"{name}_serve", t0, native=native, store=store_cls,
+            acked=len(lat), write_s=t_w,
             acked_writes_per_s=len(lat) / t_w, rounds=rounds_w,
             rounds_per_s=rounds_w / t_w, ack_p50_ms=float(np.percentile(ms, 50)),
             ack_p99_ms=float(np.percentile(ms, 99)), quorum_gets=quorum_gets,
@@ -703,13 +784,16 @@ def _in_threads(fn, items, n_threads=100, timeout=300):
 
 
 def _put_all(base, gs, val):
-    """PUT /tenants/{g}/v2/keys/smoke for every g from 100 threads;
+    """PUT /tenants/{g}/v2/keys/smoke for every g from 100 threads, the
+    i-th through base (or through base[i % len(base)] given a list);
     {g: seconds to its ack}."""
     lat = {}
+    bases = [base] if isinstance(base, str) else list(base)
+    via = {g: bases[i % len(bases)] for i, g in enumerate(gs)}
 
     def put(g):
         t1 = time.perf_counter()
-        st, body = _http("PUT", f"{base}/tenants/{g}/v2/keys/smoke",
+        st, body = _http("PUT", f"{via[g]}/tenants/{g}/v2/keys/smoke",
                          f"value={val(g)}".encode(), FORM)
         if st not in (200, 201) or body["node"]["value"] != val(g):
             raise AssertionError(f"PUT g={g}: {st} {body}")
@@ -754,13 +838,13 @@ def _wait_status(base, groups=None, proc=None, deadline_s=300.0):
         time.sleep(0.5)
 
 
-def _leg(t0, leg, lat, write_s, rounds, step_s, **kv):
+def _leg(t0, leg, lat, write_s, rounds, step_s, phase="http_front", **kv):
     ms = np.array(sorted(lat.values())) * 1e3
-    log("http_front", t0, leg=leg, acked=len(lat), write_s=write_s,
+    log(phase, t0, leg=leg, acked=len(lat), write_s=write_s,
         acked_writes_per_s=len(lat) / write_s,
         ack_p50_ms=float(np.percentile(ms, 50)),
         ack_p99_ms=float(np.percentile(ms, 99)), rounds=rounds,
-        rounds_per_s=rounds / write_s,
+        rounds_per_s=None if rounds is None else rounds / write_s,
         step_s={k: round(v, 3) for k, v in step_s.items()}, **kv)
 
 
@@ -777,23 +861,37 @@ class _Steps(dict):
         self._t = now
 
 
-def _spawn(args, log_path, stdout=subprocess.DEVNULL, env=None):
+def _spawn(args, log_path, stdout=subprocess.DEVNULL, env=None,
+           native=True):
+    """`python -m args...`; with native=False its C host code is off
+    (ETCD_TPU_PYSTORE=1, and `python_host` before the module runs)."""
     full = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     full.update(env or {})
-    return subprocess.Popen([sys.executable, "-m", *args], cwd=REPO,
+    head = ["-m"]
+    if not native:
+        full["ETCD_TPU_PYSTORE"] = "1"
+        head = ["-c", PY_HOST_MODULE]
+    return subprocess.Popen([sys.executable, *head, *args], cwd=REPO,
                             env=full, stdout=stdout,
                             stderr=open(log_path, "ab"), text=True)
 
 
-def _ready_line(proc, deadline_s=120.0) -> dict:
-    """The ingress's one JSON line on its standard output."""
+def _ready_line(proc, deadline_s=120.0, who="the ingress") -> dict:
+    """The one JSON line a launcher prints on its standard output."""
     ready, _, _ = select.select([proc.stdout], [], [], deadline_s)
     if not ready:
-        raise AssertionError("the ingress printed no ready line")
+        raise AssertionError(f"{who} printed no ready line")
     line = proc.stdout.readline()
     if not line:
-        raise AssertionError(f"the ingress exited rc={proc.wait(10)}")
+        raise AssertionError(f"{who} exited rc={proc.wait(10)}")
     return json.loads(line)
+
+
+def _maps_lib(pid, name) -> bool:
+    """Whether process pid has the port's C library `name` mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any(os.path.basename(ln.split()[-1]).startswith(name + ".")
+                   for ln in f if ln.rstrip().endswith(".so"))
 
 
 def _scrape(base, name) -> dict:
@@ -817,7 +915,7 @@ def _compute_apps() -> list:
 
 
 def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
-                     device_flags=()):
+                     device_flags=(), native=True):
     """The tenant HTTP front and the ingress as users run them, at the
     CLI's defaults but for G, P and the window (fsync on, max_ents 8):
 
@@ -828,7 +926,11 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
        etcd_tpu_torch.server.ingress` as processes; writes and a CAS
        race through the ingress; every batchframe sent was answered;
     3. SIGKILL of the server, the same command again, every write acked
-       in 2 read back; SIGTERM ends both processes with rc 0."""
+       in 2 read back; SIGTERM ends both processes with rc 0.
+
+    With native=False the C host code is off in every process of the
+    phase: this one's (`host_code`), the servers' (ETCD_TPU_PYSTORE=1 and
+    no C codecs) and the ingress's (`--no-native`)."""
     import torch
     from etcd_tpu_torch.etcdmain import parse_args
     from etcd_tpu_torch.etcdmain.etcd import EngineServer
@@ -837,7 +939,8 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
     on_card = torch.device(dev).type == "cuda"
     gs = [i * groups // tenants for i in range(tenants)]
     procs = []
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-http-") as d:
+    with host_code(native), \
+            tempfile.TemporaryDirectory(prefix="chip_smoke-http-") as d:
         def flags(name, port):
             return ["--engine-groups", str(groups), "--engine-peers", str(P),
                     "--engine-window", str(W),
@@ -879,6 +982,10 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                     != [201, 412]:
                 raise AssertionError(f"/batch: {st} {body}")
             steps.done("batch")
+            store_cls = type(srv.engine.store(gs[0])).__name__
+            if store_cls != ("NativeStore" if native else "Store"):
+                raise AssertionError(f"native={native} served from "
+                                     f"{store_cls}")
         finally:
             srv.stop()
         if srv.engine.failed is not None:
@@ -886,7 +993,9 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
         launches = ring_resolve.launches   # the main path ends here
         by_variant = dict(ring_resolve.launches_by_variant)
         steps.done("stop")
-        _leg(t0, "in_process", lat, write_s, rounds, steps,
+        _leg(t0, "in_process", lat, write_s, rounds, steps, native=native,
+             store=store_cls,
+             phase_s={k: round(v, 4) for k, v in srv.engine.phase_s.items()},
              groups_with_leader=status["groups_with_leader"],
              quorum_gets=quorum_gets, batch_statuses=[201, 412],
              launches=launches, launches_by_variant=by_variant)
@@ -899,10 +1008,13 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
         srv_log = os.path.join(d, "server.log")
         try:
             apps0 = _compute_apps() if on_card else []
-            server = _spawn(cmd, srv_log)
+            server = _spawn(cmd, srv_log, native=native)
             procs.append(server)
             status = _wait_status(base, groups, server)
             steps.done("boot")
+            if _maps_lib(server.pid, "storecore") != native:
+                raise AssertionError(f"native={native}: the server's C "
+                                     f"store loaded: {not native}")
             apps = _compute_apps() if on_card else []
             with open(srv_log, "rb") as f:
                 said_cuda = b" peers on cuda:" in f.read()
@@ -911,8 +1023,9 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                                      f"{apps0} -> {apps}, log says cuda: "
                                      f"{said_cuda}")
             ing = _spawn(["etcd_tpu_torch.server.ingress", "--upstream",
-                          base], os.path.join(d, "ingress.log"),
-                         stdout=subprocess.PIPE)
+                          base, *([] if native else ["--no-native"])],
+                         os.path.join(d, "ingress.log"),
+                         stdout=subprocess.PIPE, native=native)
             procs.append(ing)
             ing_base = f"http://127.0.0.1:{_ready_line(ing)['port']}"
             steps.done("ingress_ready")
@@ -943,14 +1056,18 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
             recv = frames.get('{direction="recv"}', 0.0)
             if not 0 < sent == recv:
                 raise AssertionError(f"upstream frames: {frames}")
-            native = _scrape(ing_base, "etcd_ingress_native_enabled")
+            ing_native = _scrape(ing_base, "etcd_ingress_native_enabled")
+            if ing_native.get("") != (1.0 if native else 0.0):
+                raise AssertionError(f"native={native}: ingress reports "
+                                     f"{ing_native}")
             _leg(t0, "cli_ingress", lat, write_s, rounds, steps,
+                 native=native,
                  groups_with_leader=status["groups_with_leader"],
                  compute_apps_before_server=apps0,
                  compute_apps_with_server=apps,
                  cas_outcomes=outcomes, upstream_frames_sent=sent,
                  upstream_frames_recv=recv,
-                 ingress_native_enabled=native.get("", None))
+                 ingress_native_enabled=ing_native[""])
 
             # Leg 3: SIGKILL the server, run the same command again. The
             # acked writes are read back as soon as it serves: a local
@@ -958,7 +1075,7 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
             steps = _Steps()
             server.send_signal(signal.SIGKILL)
             server.wait(timeout=60)
-            server = _spawn(cmd, srv_log)
+            server = _spawn(cmd, srv_log, native=native)
             procs.append(server)
             _wait_status(base, proc=server)
             steps.done("restart")
@@ -975,7 +1092,8 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
             steps.done("sigterm")
             if rcs != {"ingress": 0, "server": 0}:
                 raise AssertionError(f"exit codes on SIGTERM: {rcs}")
-            log("http_front", t0, leg="sigkill_restart", read_back=len(want),
+            log("http_front", t0, leg="sigkill_restart", native=native,
+                read_back=len(want),
                 groups_with_leader_after_read_back=leaders, rcs=rcs,
                 step_s={k: round(v, 3) for k, v in steps.items()})
         except BaseException:
@@ -989,6 +1107,147 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                     p.kill()
                     p.wait(timeout=60)
     return launches, by_variant
+
+
+POOL_SHARDS = 2      # engine processes of phase_pool_serve on the card
+STOP_LINE = "ring_resolve launches by instantiation "
+
+
+def phase_pool_serve(dev, groups=G, shards=POOL_SHARDS, tenants=1000,
+                     quorum_gets=100, ingresses=2):
+    """`python -m etcd_tpu_torch.tools.pool_serve`: `shards` engine
+    processes (the CLI at G/shards tenants each, P, W, fsync on) on the
+    card behind one router, every shard among the card's compute apps;
+    PUTs and quorum GETs through the router, every acked write read back
+    through it; then `python -m etcd_tpu_torch.tools.ingress_serve` with
+    `ingresses` ingress processes in front of the router (their lanes
+    flush JSON batches: the router relays no upgraded channel), PUTs
+    striped over them, every acked write read back through the router;
+    SIGTERM ends both launchers with rc 0, and every shard's stop line
+    counts its ring_resolve launches. Returns the launches by shard."""
+    import torch
+    on_card = torch.device(dev).type == "cuda"
+    t0 = time.perf_counter()
+    gs = [i * groups // tenants for i in range(tenants)]
+    procs, shard_pids, pool = [], [], None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-pool-") as d:
+        pool_log = os.path.join(d, "pool.log")
+        try:
+            steps = _Steps()
+            apps0 = _compute_apps() if on_card else []
+            pool = _spawn(["etcd_tpu_torch.tools.pool_serve", "--groups",
+                           str(groups), "--shards", str(shards), "--peers",
+                           str(P), "--window", str(W), "--data-dir",
+                           os.path.join(d, "pool"), "--engine-device",
+                           torch.device(dev).type], pool_log,
+                          stdout=subprocess.PIPE)
+            procs.append(pool)
+            info = _ready_line(pool, deadline_s=660, who="pool_serve")
+            if "error" in info:
+                raise AssertionError(f"pool_serve: {info}")
+            shard_pids = info["pids"]
+            router = f"http://127.0.0.1:{info['router']}"
+            apps = _compute_apps() if on_card else []
+            if on_card and len(apps) != len(apps0) + shards:
+                raise AssertionError(f"the shards are not on the card: "
+                                     f"{apps0} -> {apps}")
+            steps.done("boot")
+            t1 = time.perf_counter()
+            lat = _put_all(router, gs, lambda g: f"p{g}")
+            write_s = time.perf_counter() - t1
+            steps.done("put")
+            _get_all(router, {g: f"p{g}" for g in gs[:quorum_gets]},
+                     quorum=True)
+            steps.done("quorum_get")
+            _get_all(router, {g: f"p{g}" for g in gs})
+            steps.done("read_back")
+            _leg(t0, "router", lat, write_s, None, steps, phase="pool_serve",
+                 shards=shards, groups_per_shard=info["per_shard"],
+                 boot_s_by_shard=info["boot_s"], quorum_gets=quorum_gets,
+                 read_back=len(gs), compute_apps_before=apps0,
+                 compute_apps_with_pool=apps)
+
+            steps = _Steps()
+            ing = _spawn(["etcd_tpu_torch.tools.ingress_serve", "--upstream",
+                          router, "--ingress", str(ingresses)],
+                         os.path.join(d, "ingress.log"),
+                         stdout=subprocess.PIPE)
+            procs.append(ing)
+            bases = [f"http://127.0.0.1:{p}" for p in
+                     _ready_line(ing, who="ingress_serve")["ingress"]]
+            steps.done("ingress_ready")
+            t1 = time.perf_counter()
+            lat = _put_all(bases, gs, lambda g: f"q{g}")
+            write_s = time.perf_counter() - t1
+            steps.done("put")
+            _get_all(router, {g: f"q{g}" for g in gs})
+            steps.done("read_back")
+            fallbacks = []
+            for b in bases:     # JSON batches: the router relays no 101
+                on = _scrape(b, "etcd_ingress_native_enabled").get("")
+                fb = _scrape(b, "etcd_ingress_upstream_fallbacks_total")
+                if on != 1.0 or not fb.get("", 0.0) > 0:
+                    raise AssertionError(f"ingress {b}: native {on}, "
+                                         f"fallbacks to JSON {fb}")
+                fallbacks.append(fb[""])
+            rcs = {}
+            for name, p in (("ingress_serve", ing), ("pool_serve", pool)):
+                p.send_signal(signal.SIGTERM)
+                rcs[name] = p.wait(timeout=120)
+            steps.done("sigterm")
+            if rcs != {"ingress_serve": 0, "pool_serve": 0}:
+                raise AssertionError(f"exit codes on SIGTERM: {rcs}")
+            with open(pool_log) as f:
+                stops = [json.loads(ln.split(STOP_LINE, 1)[1]) for ln in f
+                         if STOP_LINE in ln]
+            if len(stops) != shards or on_card and not all(
+                    s["te5"] and s["generic"] for s in stops):
+                raise AssertionError(f"shard stop lines: {stops}")
+            _leg(t0, "ingress", lat, write_s, None, steps, phase="pool_serve",
+                 ingresses=ingresses, lanes_on_json_batches=fallbacks,
+                 read_back=len(gs), rcs=rcs,
+                 launches_by_shard=stops)
+        except BaseException:
+            with open(pool_log, "rb") as f:
+                print(f.read()[-4000:].decode(errors="replace"),
+                      file=sys.stderr)
+            raise
+        finally:
+            # A launcher stops its children on SIGTERM; SIGKILL only one
+            # that does not exit, and then reap the shards it leaves.
+            killed = []
+            for p in procs:
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+                    try:
+                        p.wait(timeout=60)
+                    except subprocess.TimeoutExpired:
+                        p.kill()
+                        p.wait(timeout=60)
+                        killed.append(p)
+            for pid in shard_pids if pool in killed else ():
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        if b"etcd_tpu_torch" in f.read():
+                            os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+    return stops
+
+
+def phase_tsan() -> None:
+    """The port's C under ThreadSanitizer where libtsan is installed
+    (`python -m etcd_tpu_torch.tools.tsan_check`), else a printed skip."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "etcd_tpu_torch.tools.tsan_check",
+         "--if-available"], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    said = res.stdout.strip().splitlines()[:1]
+    if res.returncode != 0 or not said:
+        raise AssertionError(f"tsan_check rc={res.returncode}: "
+                             f"{res.stdout[-4000:]}{res.stderr[-2000:]}")
+    log("tsan", t0, result=said[0].split(" — ")[0], said=said[0])
 
 
 NHOSTS = 5           # one replica of every group per rank process
@@ -1604,6 +1863,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_c = time.perf_counter()
+    from etcd_tpu_torch import native_build   # builds the C at first use
+    c_build_s = time.perf_counter() - t_c
     from concurrent.futures import ThreadPoolExecutor
     from etcd_tpu_torch.ops import cuda_build
     from etcd_tpu_torch.ops.ring_resolve import stage_shape
@@ -1618,6 +1880,14 @@ def main() -> int:
     print(json.dumps({"python": sys.version.split()[0],
                       "torch": torch.__version__, "cuda": torch.version.cuda,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
+    flags = native_flags()
+    log("build_c", t0, import_s=c_build_s, flags=flags,
+        libraries=[native_build.installed_path(n).name
+                   for n in native_build.NAMES
+                   if native_build.installed_path(n).exists()])
+    if not all(flags.values()):
+        raise AssertionError(f"the C host code did not build on this "
+                             f"machine (it needs cc and Python.h): {flags}")
     with ThreadPoolExecutor() as pool:   # one nvcc per build, all at once
         build = pool.submit(cuda_build.build, "ring_resolve")
         ptxas = pool.submit(cuda_build.ptxas_report, "ring_resolve").result()
@@ -1635,11 +1905,17 @@ def main() -> int:
     if not (by_variant["te4"] and by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the main path: {by_variant}")
+    off_launches, off_by_variant = phase_engine(
+        dev, name="engine_native_off", native=False)
     http_launches, http_by_variant = phase_http_front(dev)
     if not (http_by_variant["te5"] and http_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
                              f"{http_by_variant}")
+    http_off_launches, http_off_by_variant = phase_http_front(
+        dev, native=False)
+    pool_stops = phase_pool_serve(dev)
+    phase_tsan()
     # 500 tenants, not 1,000: the load of this phase is what is cut to
     # keep the whole script near 400 s with the phases after it.
     mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(
@@ -1657,8 +1933,14 @@ def main() -> int:
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
         "engine": {"launches": launches, "by_variant": by_variant},
+        "engine_native_off": {"launches": off_launches,
+                              "by_variant": off_by_variant},
         "http_front": {"launches": http_launches,
                        "by_variant": http_by_variant},
+        "http_front_native_off": {"launches": http_off_launches,
+                                  "by_variant": http_off_by_variant},
+        "pool_serve": {"launches": sum(sum(s.values()) for s in pool_stops),
+                       "by_shard": pool_stops},
         "multihost_frames": {
             "launches": mh_launches, "by_variant": mh_by_variant,
             "by_rank": [ln["launches_by_variant"] for ln in mh_lines]},

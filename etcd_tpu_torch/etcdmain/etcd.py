@@ -15,6 +15,7 @@ yet; asked for either, `main` says so and returns 1.
 """
 from __future__ import annotations
 
+import json
 import logging
 import os
 import signal
@@ -199,4 +200,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         stop_ev.wait()
     finally:
         runner.stop()
+        from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+        log.info("engine: stopped after %d rounds on %s; ring_resolve "
+                 "launches by instantiation %s", runner.engine.round_no,
+                 runner.engine.device,
+                 json.dumps(ring_resolve.launches_by_variant,
+                            sort_keys=True))
     return 0

@@ -235,6 +235,7 @@ class HostEngine:
         # host drops OLDEST — raft retransmits; reference drop-on-full,
         # peer.go:156-165) + our own self-loop slice (frames plane).
         self._meta_rx: Dict[int, deque] = {}
+        self._bad_meta_senders: set = set()
         self._self_loop: Optional[np.ndarray] = None
         # The collective plane's routed inbox, this column's block
         # (G, 1, P, F), kept on the device round to round.
@@ -510,6 +511,16 @@ class HostEngine:
             # mailbox holds ONE message per (g, to, from) slot). Bounded
             # backlog drops OLDEST — raft's retransmission machinery
             # (heartbeats, probes) repairs exactly like a dropped packet.
+            # `frm` comes from the unauthenticated handshake and becomes
+            # an inbox column: a sender outside the peer slots, or one
+            # claiming ours, would stop the round (IndexError) or write
+            # another peer's column, so its frames are dropped.
+            if not 0 <= frm < self.cfg.peers or frm == self.my_slot:
+                if frm not in self._bad_meta_senders:
+                    self._bad_meta_senders.add(frm)
+                    log.warning("meta frames from host %d dropped: not a "
+                                "peer slot of host %d", frm, self.my_slot)
+                return
             q = self._meta_rx.get(frm)
             if q is None:
                 q = self._meta_rx.setdefault(frm, deque(maxlen=16))

@@ -18,7 +18,10 @@ import jax.numpy as jnp
 
 from etcd_tpu.server import engine as jax_engine
 from etcd_tpu.server.enginewal import EngineWAL
+from etcd_tpu.store.event import LazyWriteEvent as JLazyWriteEvent
+from etcd_tpu_torch import store as torch_store
 from etcd_tpu_torch.server import engine as torch_engine
+from etcd_tpu_torch.store.event import LazyWriteEvent
 from etcd_tpu_torch.server.request import Request as TRequest
 from etcd_tpu.server.request import Request as JRequest
 
@@ -106,10 +109,19 @@ def _drive(mod, data_dir, rounds=ROUNDS, **kw):
     return eng, waiters
 
 
+def _result(q):
+    """A waiter's result, a LazyWriteEvent resolved as the engine's own
+    consumers resolve it (a C-store SET wakes its waiter with one)."""
+    res = q.get_nowait()
+    if isinstance(res, (LazyWriteEvent, JLazyWriteEvent)):
+        return res.resolve()
+    return res
+
+
 def _answer(q):
     """A request's outcome in comparable form (None = not answered)."""
     try:
-        res = q.get_nowait()
+        res = _result(q)
     except queue.Empty:
         return None
     if isinstance(res, Exception):
@@ -155,10 +167,21 @@ def _assert_same_engines(a, b):
         assert a._stores[g].save() == b._stores[g].save(), g
 
 
-def test_engine_matches_jax_engine(tmp_path):
+@pytest.mark.parametrize("native", [True, False], ids=["c-store",
+                                                      "python-store"])
+def test_engine_matches_jax_engine(tmp_path, monkeypatch, native):
+    """Both of the port's apply paths: the C store (a SET wakes its
+    waiter with a LazyWriteEvent) and the Python store."""
+    assert torch_store.HAVE_NATIVE_STORE
+    monkeypatch.setattr(torch_store, "HAVE_NATIVE_STORE", native)
     je, jw = _drive(jax_engine, str(tmp_path / "jax"))
     te, tw = _drive(torch_engine, str(tmp_path / "torch"))
     try:
+        want = torch_store.NativeStore if native else torch_store.Store
+        assert all(type(s) is want for s in te._stores.values())
+        lazy = sum(type(q.queue[0]) is LazyWriteEvent
+                   for q in tw.values() if q.qsize())
+        assert (lazy > 0) == native, lazy
         _assert_same_engines(je, te)
         assert sorted(jw) == sorted(tw)
         answers = {rid: (_answer(jw[rid]), _answer(tw[rid])) for rid in jw}
@@ -340,7 +363,7 @@ def test_host_surgery_matches_jax_engine(tmp_path):
 def _answer_any(q):
     """Like _answer, also for conf-change answers (slot lists)."""
     try:
-        res = q.get_nowait()
+        res = _result(q)
     except queue.Empty:
         return None
     if isinstance(res, Exception):

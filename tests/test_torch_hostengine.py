@@ -347,3 +347,77 @@ def test_data_dirs_restore_across_packages(tmp_path, writer):
         finally:
             re.stop()
     assert saw_ckpt, "no rank wrote a checkpoint"
+
+
+def test_meta_frames_from_a_bad_sender_are_dropped(tmp_path, monkeypatch,
+                                                   caplog):
+    """The sender id of a frame comes from the unauthenticated handshake
+    and keys the inbox column its meta frames fill. Meta frames from a
+    sender claiming `peers` (past the last column), -1 (another peer's
+    column from the end) or the host's own slot are dropped, with one
+    warning per sender: the host keeps serving, its next write acks and
+    reads back everywhere, and only the real peers' columns are fed."""
+    import logging
+    import socket
+    import struct
+
+    ports = _free_ports(N)
+    engines = [_mk(r, ports, str(tmp_path)) for r in range(N)]
+    host = engines[0]
+    fields = host.kcfg.fields
+    # A frame whose every field is a marker: it must never be unpacked
+    # into the inbox.
+    marker = 0x7BAD
+    bad = the._pack_meta(np.arange(G, dtype=np.int64),
+                         np.full((G, fields), marker, np.int32))
+    unpacked = []
+    real_unpack = the._unpack_meta
+
+    def spy(blob, fields):
+        idx, vals = real_unpack(blob, fields)
+        unpacked.append(bool((vals == marker).all()) and len(idx) == G)
+        return idx, vals
+
+    monkeypatch.setattr(the, "_unpack_meta", spy)
+    for e in engines:
+        e.start()
+    try:
+        _wait_all_leaders(engines)
+        caplog.set_level(logging.WARNING, logger=the.log.name)
+        hdr = json.dumps({"t": "meta"}).encode()
+        frame = struct.pack("<II", len(hdr), len(bad)) + hdr + bad
+        socks = []
+        for frm in (N, 0):           # `peers`, and the host's own slot
+            s = socket.create_connection(("127.0.0.1", ports[0]))
+            s.sendall(struct.pack("<I", frm) + frame + frame)
+            socks.append(s)
+        host._on_frame(-1, {"t": "meta"}, bad)   # not sayable on the wire
+        host._on_frame(-1, {"t": "meta"}, bad)
+        deadline = time.time() + 10
+        while host._bad_meta_senders != {N, 0, -1}:
+            assert time.time() < deadline, host._bad_meta_senders
+            time.sleep(0.02)
+        r0 = host.round_no
+        while host.round_no < r0 + 20:
+            assert host.failed is None, host.failed
+            assert time.time() < deadline + 30, "the host stopped its rounds"
+            time.sleep(0.02)
+        for s in socks:
+            s.close()
+        assert host.failed is None
+        assert set(host._meta_rx) <= {1, 2}
+        assert not any(unpacked) and unpacked   # real frames still flow
+        warned = [r.getMessage() for r in caplog.records
+                  if "not a peer slot" in r.getMessage()]
+        assert sorted(warned) == sorted(
+            f"meta frames from host {f} dropped: not a peer slot of host 0"
+            for f in (N, 0, -1))
+        want = {}
+        for g in range(G):
+            _put_retry(host, g, f"/1/after{g}", "ok", time.time() + 60,
+                       "after bad frames")
+            want[(g, f"/1/after{g}")] = "ok"
+        _wait_values(engines, want)
+        assert all(e.failed is None for e in engines)
+    finally:
+        _stop_all(engines)

@@ -24,7 +24,14 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "server/security.py", "etcdhttp/web.py", "etcdhttp/client.py",
             "etcdhttp/client_security.py", "server/batchframe.py",
             "etcdhttp/tenants.py", "server/ingress.py",
-            "parallel/frames.py"]
+            "parallel/frames.py", "store/native_store.py",
+            "tools/etcd_top.py"]
+# Where a copy's source is not at the same path under etcd_tpu/.
+SOURCES = {"tools/etcd_top.py": "scripts/etcd_top.py"}
+NATIVE_C = ["native/walcodec.c", "native/ingresscore.c",
+            "native/storecore.c"]
+TOOLS = ["pool_serve", "ingress_serve", "scale_curve", "profile_engine",
+         "etcd_top", "tsan_check"]
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
 
@@ -40,6 +47,8 @@ def test_engine_import_loads_no_jax_and_no_jax_package():
             "import etcd_tpu_torch.server.hostengine\n"
             "import etcd_tpu_torch.tools.multihost_engine\n"
             "import etcd_tpu_torch.tools.multihost_supervisor\n"
+            + "".join(f"import etcd_tpu_torch.tools.{t}\n" for t in TOOLS)
+            + "import etcd_tpu_torch.store.native_store\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -48,6 +57,8 @@ def test_engine_import_loads_no_jax_and_no_jax_package():
     assert "etcd_tpu_torch.server.engine" in out
     assert "etcd_tpu_torch.server.hostengine" in out
     assert "etcd_tpu_torch.tools.multihost_supervisor" in out
+    assert all(f"etcd_tpu_torch.tools.{t}" in out for t in TOOLS)
+    assert "etcd_tpu_torch.native.storecore" in out
     assert "torch" in out
     assert [m for m in out if _is_forbidden(m)] == []
 
@@ -79,11 +90,42 @@ def test_no_source_file_imports_jax_or_the_jax_package():
 @pytest.mark.parametrize("rel", VERBATIM)
 def test_host_module_is_a_verbatim_copy(rel):
     ours = open(os.path.join(PKG, rel)).read().splitlines()
-    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    source = SOURCES.get(rel, os.path.join("etcd_tpu", rel))
+    theirs = open(os.path.join(ROOT, source)).read().splitlines()
     assert len(ours) == len(theirs)
     for i, (a, b) in enumerate(zip(ours, theirs), 1):
         if a != b:
             assert _IMPORT_LINE.sub(r"\1etcd_tpu", a) == b, f"{rel}:{i}"
+
+
+@pytest.mark.parametrize("rel", NATIVE_C)
+def test_native_source_is_its_source_under_the_rename(rel):
+    """Each C file is the JAX package's with `etcd_tpu` renamed
+    `etcd_tpu_torch`, and nothing else: undoing the rename gives the
+    source back byte for byte."""
+    ours = open(os.path.join(PKG, rel), "rb").read()
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel), "rb").read()
+    assert b"etcd_tpu_torch" not in theirs
+    assert ours.replace(b"etcd_tpu_torch", b"etcd_tpu") == theirs
+    assert re.sub(rb"\betcd_tpu\b", b"etcd_tpu_torch", theirs) == ours
+
+
+_C_COMMENT = re.compile(r"/\*.*?\*/|//[^\n]*", re.S)
+_C_STRING = re.compile(r'"(?:[^"\\\n]|\\.)*"')
+
+
+@pytest.mark.parametrize("rel", NATIVE_C)
+def test_no_native_string_names_the_jax_package(rel):
+    """No string literal of the port's C names `etcd_tpu.`: the C imports
+    the port's errors module (the class the port's HTTP front catches)
+    and names its type under the port."""
+    code = _C_COMMENT.sub("", open(os.path.join(PKG, rel)).read())
+    strings = _C_STRING.findall(code)
+    assert strings
+    assert [s for s in strings if re.search(r"\betcd_tpu\.", s)] == []
+    if rel.endswith("storecore.c"):
+        assert '"etcd_tpu_torch.errors"' in strings
+        assert '"etcd_tpu_torch.native.storecore.Core"' in strings
 
 
 def test_cli_config_differs_only_by_the_engine_device():

@@ -7,11 +7,12 @@ Mirrors of tests/test_ingress.py (per-client FIFO through coalescing,
 error fan-back, no acked write lost across a SIGKILL of the ingress,
 client identity through coalescing) and tests/test_do_many.py (the
 /batch route, the batchframe channel's WAL parity with /batch, and a
-channel severed mid-flight collecting its staged flushes). The port has
-no C ingress core, so its ingress runs the Python scanner and formatter
-(etcd_ingress_native_enabled 0), the JAX package's own path without the
-built extension. Tolerance: exact (statuses, errorCodes, values, event
-histories and store dumps equal).
+channel severed mid-flight collecting its staged flushes). The port
+builds its C ingress core at first use, so its ingress runs the C
+scanner and formatter (etcd_ingress_native_enabled 1); the FIFO test
+also runs with use_native=False, the Python hot loop (0). Tolerance:
+exact (statuses, errorCodes, values, event histories and store dumps
+equal).
 """
 import base64
 import json
@@ -142,13 +143,18 @@ def _join_all(threads, timeout):
 
 # -- tests/test_ingress.py ---------------------------------------------------
 
-def test_per_client_fifo_through_coalescing(tmp_path):
+@pytest.mark.parametrize("use_native", [True, False],
+                         ids=["c-hot-loop", "python-hot-loop"])
+def test_per_client_fifo_through_coalescing(tmp_path, use_native):
     """Depth-1 clients writing sequentially through small flush windows:
     every client's writes apply in its submission order, and the lanes
     really coalesced (flushes < requests). The port's ingress reports
-    its Python hot loop."""
-    with stack(tmp_path, flush_max_requests=8) as s:
-        assert _scrape(s.base, "etcd_ingress_native_enabled") == 0.0
+    the hot loop it runs: the C one by default, the Python one with
+    use_native=False."""
+    with stack(tmp_path, flush_max_requests=8,
+               use_native=use_native) as s:
+        assert _scrape(s.base, "etcd_ingress_native_enabled") == \
+            (1.0 if use_native else 0.0)
         n0 = _scrape(s.base, "etcd_ingress_coalesce_batch_requests_count")
         s0 = _scrape(s.base, "etcd_ingress_coalesce_batch_requests_sum")
         N, W = 24, 12

@@ -226,9 +226,9 @@ def test_three_hosts_write_everywhere_and_converge(tmp_path):
     PROPOSE forwarding per group), all three converge on every value, and
     a restart preserves everything (per-host WAL replay at N>2).
 
-    Its JAX counterpart (tests/test_hostengine.py) failed in the last
-    tier-1 run of this repo, so this mirror has no passing reference on
-    this box; its checks are the counterpart's, whole."""
+    Its JAX counterpart (tests/test_hostengine.py) is sensitive to the
+    box's load: it has failed in some full runs and passed in others.
+    This mirror's checks are the counterpart's, whole."""
     cl = Cluster(tmp_path, n=3, groups=6).start()
 
     def body():
