@@ -33,6 +33,16 @@ exit) if any phase fails:
    `step_routed_slots_auto`, hops=1, max_ents 8: TE=5 at idx (G, P, P),
    generic at (G, P, 8)); 30 small rounds on the card and on the CPU,
    bit-equal.
+3a. raft_oracle: the card's round against the scalar Raft (the port's
+   `raft/core.py`, etcd_tpu_torch/ops/oracle.py): `kernel.step` with the
+   CUDA `ring_resolve` and `route_local` at G × P (W, E), faults (drops,
+   delays, a leader partition) drawn on the card from a torch.Generator,
+   under the tight-window schedule (90 rounds, also stepped in lockstep
+   with the plain resolve, equal after every round) and the heavy-loss
+   one (90 rounds); a scalar Raft per (group, slot) of 128 sampled
+   groups (0, G-1, groups straddling a 256-row tile edge) equal to the
+   card after every round; need_host never set on any group; ms per
+   round, the mirror's ms per round, launches by instantiation.
 4. engine: `MultiEngine` boots, elects, acks 1,000 PUTs from side
    threads, serves their GETs and 100 quorum GETs, and after a restart
    on the same data dir reads every acked write back. The kernels'
@@ -98,7 +108,20 @@ exit) if any phase fails:
    SIGKILL of one rank and the supervisor's whole-job restart (detect,
    restart, total seconds), every acked write read back, SIGTERM and
    each rank's exit line.
-10. one JSON line describing every kernel, then the last line
+10. member_cluster: etcd's own deployment through the port's CLI:
+   three `python -m etcd_tpu_torch` members from a static
+   --initial-cluster bootstrap, at the reference's tick (heartbeat 100
+   ms, election 1,000 ms) with fsync on and --snapshot-count 250 (the
+   one cut; the reference's is 10,000): boot seconds; 1,000 PUTs from
+   100 threads spread over the members (acked writes/s, ack p50/p99),
+   100 quorum GETs and a CAS race; SIGKILL of a follower while writes go
+   on and its restart (seconds to caught up); SIGKILL of the leader
+   while writes go on (seconds to a new leader) and its restart; every
+   acked write read back from every member; /v2/members and
+   /v2/stats/self sane; no member among the card's compute apps (the
+   member mode is host code: the card does no work here); rc 0 on
+   SIGTERM for every member.
+11. one JSON line describing every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA device; without one it exits nonzero and prints no result.
@@ -1843,6 +1866,335 @@ def phase_multihost_collective(dev, groups=G, tenants=1000, quorum_gets=100,
     return sum(by_variant.values()), by_variant, lines
 
 
+ORACLE_SCHEDULES = (
+    # (name, rounds, run_sampled's fault knobs, twin resolve): the tight
+    # window and heavy-loss schedules of tests/test_equivalence.py; the
+    # first also runs in lockstep on the plain resolve.
+    ("tight_window", 90, dict(drop_p=0.2, delay_p=0.1, prop_p=0.95), True),
+    ("heavy_loss", 90, dict(drop_p=0.45, delay_p=0.2, partition_every=60),
+     False))
+
+
+def phase_raft_oracle(dev, groups=G, schedules=ORACLE_SCHEDULES):
+    """The card's round against the scalar Raft (etcd_tpu_torch/ops/
+    oracle.py): `kernel.step` with the CUDA `ring_resolve`, then
+    `route_local`, at groups × P (W, E; TE=5 in send assembly, TE=4 in the
+    conflict scan), faults drawn on the card from a torch.Generator
+    seeded from SEED; the port's scalar `raft.core.Raft` mirrors a sample
+    of at least 128 groups (0, G-1, and groups whose rows straddle a
+    256-row tile edge of the kernel's launch plan) and must agree with
+    the card on every field after every round; `need_host` never fires
+    on any group; more than half the groups commit. The first schedule
+    also steps a twin state with `ring_resolve_ref`, equal after every
+    round. Returns the ring_resolve launches of the kernel runs, in all
+    and by instantiation."""
+    import torch
+    from etcd_tpu_torch.ops import oracle
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    from etcd_tpu_torch.ops.state import KernelConfig
+    t0 = time.perf_counter()
+    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=E)
+    by0 = dict(ring_resolve.launches_by_variant)
+    for k, (name, rounds, faults, twin) in enumerate(schedules):
+        out = oracle.run_sampled(
+            cfg, SEED + k, rounds, device=dev,
+            twin_resolve=ring_resolve_ref if twin else None, **faults)
+        log("raft_oracle", t0, schedule=name, window=W, max_ents=E,
+            equal_to_scalar_raft=True, need_host=False,
+            equal_to_plain=True if twin else None, **faults, **out)
+    by = {k: ring_resolve.launches_by_variant[k] - by0[k] for k in by0}
+    if torch.device(dev).type == "cuda" and not (by["te4"] and by["te5"]):
+        raise AssertionError(f"raft_oracle: kernels launched {by}")
+    return sum(by.values()), by
+
+
+MEMBERS = ("m0", "m1", "m2")
+# The one cut of the member cluster: the reference's --snapshot-count is
+# 10,000; at 250 the phase's writes cross several snapshots.
+MEMBER_SNAPSHOT_COUNT = 250
+
+
+def _member_args(name, d, peers, clients):
+    initial = ",".join(f"{n}={peers[n]}" for n in MEMBERS)
+    return ["etcd_tpu_torch", "--name", name,
+            "--data-dir", os.path.join(d, name),
+            "--initial-cluster", initial,
+            "--initial-advertise-peer-urls", peers[name],
+            "--listen-peer-urls", peers[name],
+            "--listen-client-urls", clients[name],
+            "--advertise-client-urls", clients[name],
+            "--initial-cluster-token", "chip-smoke-members",
+            "--initial-cluster-state", "new",
+            "--heartbeat-interval", "100", "--election-timeout", "1000",
+            "--snapshot-count", str(MEMBER_SNAPSHOT_COUNT)]
+
+
+def _member_stats(base):
+    try:
+        st, body = _http("GET", base + "/v2/stats/self", timeout=5)
+    except OSError:
+        return None
+    return body if st == 200 else None
+
+
+def _member_leader(clients, among):
+    """The member of `among` that leads, once every member of `among`
+    answers /v2/stats/self and names it as leader; else None."""
+    stats = {n: _member_stats(clients[n]) for n in among}
+    if any(s is None for s in stats.values()):
+        return None
+    leads = {s["leaderInfo"]["leader"] for s in stats.values()}
+    if len(leads) != 1:
+        return None
+    lead = leads.pop()
+    return next((n for n, s in stats.items()
+                 if s["id"] == lead and s["state"] == "StateLeader"), None)
+
+
+def _until(cond, what, deadline_s=120.0, every=0.05):
+    t_end = time.monotonic() + deadline_s
+    while True:
+        got = cond()
+        if got:
+            return got
+        if time.monotonic() > t_end:
+            raise AssertionError(f"member_cluster: timed out on {what}")
+        time.sleep(every)
+
+
+def _member_value(base, key):
+    try:
+        st, body = _http("GET", f"{base}/v2/keys/{key}", timeout=10)
+    except OSError:
+        return None
+    return body["node"]["value"] if st == 200 else None
+
+
+def phase_member_cluster(dev, writes=1000, quorum_gets=100, cas_racers=20):
+    """etcd's own deployment through the port's CLI: three `python -m
+    etcd_tpu_torch` members from a static --initial-cluster bootstrap on
+    localhost, at the reference's tick (--heartbeat-interval 100,
+    --election-timeout 1000), fsync on, --snapshot-count 250 (the cut).
+
+    1. boot: every member answers /v2/stats/self and one leads;
+    2. `writes` PUTs from 100 threads spread over the three members
+       (followers forward to the leader), `quorum_gets` quorum GETs, and
+       a CAS race of `cas_racers` threads (exactly one wins);
+    3. SIGKILL of a follower while writes go on through the others, its
+       restart on its own data dir: seconds until it has caught up;
+    4. SIGKILL of the leader while writes go on: seconds until a new
+       leader; the old leader restarts on its own data dir;
+    5. every acked write read back from every member; /v2/members and
+       each member's /v2/stats/self sane; no member among the card's
+       compute apps (the member mode is host code only); SIGTERM, rc 0
+       for every member.
+    The card does no work in this phase."""
+    import torch
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    ports = _free_ports(2 * len(MEMBERS))
+    peers = {n: f"http://127.0.0.1:{ports[i]}"
+             for i, n in enumerate(MEMBERS)}
+    clients = {n: f"http://127.0.0.1:{ports[len(MEMBERS) + i]}"
+               for i, n in enumerate(MEMBERS)}
+    procs = {}
+    acked = {}               # key -> value
+    lock = threading.Lock()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-members-") as d:
+        logp = os.path.join(d, "members.err")
+
+        def start(n):
+            procs[n] = _spawn(_member_args(n, d, peers, clients), logp)
+
+        def put(n, key, val, timeout=60):
+            st, body = _http("PUT", f"{clients[n]}/v2/keys/{key}",
+                             f"value={val}".encode(), FORM, timeout=timeout)
+            if st not in (200, 201) or body["node"]["value"] != val:
+                raise AssertionError(f"PUT {key} at {n}: {st} {body}")
+            with lock:
+                acked[key] = val
+
+        try:
+            # 1. boot.
+            apps0 = _compute_apps() if on_card else []
+            t1 = time.perf_counter()
+            for n in MEMBERS:
+                start(n)
+            lead = _until(lambda: _member_leader(clients, MEMBERS),
+                          "a leader at boot")
+            boot_s = time.perf_counter() - t1
+            apps = _compute_apps() if on_card else []
+            if len(apps) > len(apps0):
+                raise AssertionError(f"a member holds a context on the "
+                                     f"card: {apps0} -> {apps}")
+            log("member_cluster", t0, step="boot", members=len(MEMBERS),
+                boot_s=boot_s, leader=lead,
+                snapshot_count=MEMBER_SNAPSHOT_COUNT,
+                compute_apps_before=len(apps0),
+                compute_apps_with_members=len(apps))
+
+            # 2. load spread over the members.
+            lat = {}
+
+            def timed_put(i):
+                t2 = time.perf_counter()
+                put(MEMBERS[i % len(MEMBERS)], f"w/{i}", f"v{i}")
+                lat[i] = time.perf_counter() - t2
+
+            t1 = time.perf_counter()
+            errs = _in_threads(timed_put, list(range(writes)))
+            write_s = time.perf_counter() - t1
+            if errs or len(lat) != writes:
+                raise AssertionError(f"PUT failures: {errs[:5]}")
+
+            def qget(i):
+                n = MEMBERS[i % len(MEMBERS)]
+                st, body = _http("GET", f"{clients[n]}/v2/keys/w/{i}"
+                                 "?quorum=true")
+                if st != 200 or body["node"]["value"] != f"v{i}":
+                    raise AssertionError(f"quorum GET w/{i} at {n}: {st} "
+                                         f"{body}")
+
+            errs = _in_threads(qget, list(range(quorum_gets)))
+            if errs:
+                raise AssertionError(f"quorum GET failures: {errs[:5]}")
+            put(lead, "cas", "0")
+            won = []
+
+            def race(i):
+                n = MEMBERS[i % len(MEMBERS)]
+                st, body = _http("PUT", f"{clients[n]}/v2/keys/cas"
+                                 "?prevValue=0", f"value=r{i}".encode(),
+                                 FORM)
+                if st == 200:
+                    won.append(i)
+                elif not (st == 412 and body["errorCode"] == 101):
+                    raise AssertionError(f"CAS r{i}: {st} {body}")
+
+            errs = _in_threads(race, list(range(cas_racers)))
+            if errs or len(won) != 1:
+                raise AssertionError(f"CAS race: winners {won}, {errs[:5]}")
+            acked["cas"] = f"r{won[0]}"
+            ms = np.array(sorted(lat.values())) * 1e3
+            log("member_cluster", t0, step="load", acked=writes,
+                write_s=write_s, acked_writes_per_s=writes / write_s,
+                ack_p50_ms=float(np.percentile(ms, 50)),
+                ack_p99_ms=float(np.percentile(ms, 99)),
+                quorum_gets=quorum_gets, cas_racers=cas_racers,
+                cas_winners=len(won))
+
+            # 3 and 4: writes go on through the live members while one
+            # member is killed; the ones that ack count.
+            def writer(stop, live, tag):
+                i = 0
+                while not stop.is_set():
+                    n = live[i % len(live)]
+                    try:
+                        put(n, f"{tag}/{i}", f"{tag}{i}", timeout=10)
+                    except (AssertionError, OSError, ValueError):
+                        time.sleep(0.05)
+                    i += 1
+
+            def kill_with_writes(victim, live, tag):
+                stop = threading.Event()
+                ths = [threading.Thread(target=writer,
+                                        args=(stop, live, f"{tag}{k}"))
+                       for k in range(4)]
+                for th in ths:
+                    th.start()
+                time.sleep(0.5)
+                procs[victim].send_signal(signal.SIGKILL)
+                procs[victim].wait(timeout=30)
+                return stop, ths
+
+            def caught_up(n, key):
+                return _member_value(clients[n], key) == acked[key]
+
+            fol = next(n for n in MEMBERS if n != lead)
+            others = [n for n in MEMBERS if n != fol]
+            stop, ths = kill_with_writes(fol, others, "f")
+            time.sleep(2.0)
+            put(lead, "before-restart", "1")
+            t1 = time.perf_counter()
+            start(fol)
+            _until(lambda: caught_up(fol, "before-restart"),
+                   "the follower's catch-up")
+            restart_s = time.perf_counter() - t1
+            stop.set()
+            for th in ths:
+                th.join(timeout=60)
+            log("member_cluster", t0, step="follower_sigkill", member=fol,
+                restart_to_caught_up_s=restart_s, acked_so_far=len(acked))
+
+            old = lead
+            others = [n for n in MEMBERS if n != old]
+            stop, ths = kill_with_writes(old, others, "l")
+            t1 = time.perf_counter()
+            lead = _until(lambda: _member_leader(clients, others),
+                          "a new leader", every=0.02)
+            reelect_s = time.perf_counter() - t1
+            time.sleep(1.0)
+            stop.set()
+            for th in ths:
+                th.join(timeout=60)
+            start(old)
+            log("member_cluster", t0, step="leader_sigkill", old=old,
+                new=lead, reelection_s=reelect_s, acked_so_far=len(acked))
+
+            # 5. every acked write from every member.
+            _until(lambda: _member_leader(clients, MEMBERS),
+                   "all three members back")
+            want = dict(acked)
+
+            def read_back(n):
+                missing = [k for k, v in want.items()
+                           if _member_value(clients[n], k) != v]
+                for k in missing:   # a member may still be applying
+                    _until(lambda: _member_value(clients[n], k) == want[k],
+                           f"{k} on {n}", deadline_s=60)
+
+            errs = _in_threads(read_back, list(MEMBERS),
+                               n_threads=len(MEMBERS))
+            if errs:
+                raise AssertionError(f"read-back failures: {errs}")
+            st, body = _http("GET", clients[lead] + "/v2/members")
+            if st != 200 or sorted(
+                    (m["name"], m["peerURLs"][0], m["clientURLs"][0])
+                    for m in body["members"]) != sorted(
+                    (n, peers[n], clients[n]) for n in MEMBERS):
+                raise AssertionError(f"/v2/members: {st} {body}")
+            stats = {n: _member_stats(clients[n]) for n in MEMBERS}
+            if (sorted(s["name"] for s in stats.values()) != list(MEMBERS)
+                    or [s["state"] for s in stats.values()].count(
+                        "StateLeader") != 1):
+                raise AssertionError(f"/v2/stats/self: {stats}")
+            apps = _compute_apps() if on_card else []
+            if len(apps) > len(apps0):
+                raise AssertionError(f"a member holds a context on the "
+                                     f"card: {apps0} -> {apps}")
+            snaps = {n: len([f for f in os.listdir(
+                os.path.join(d, n, "member", "snap"))
+                if f.endswith(".snap")]) for n in MEMBERS}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.send_signal(signal.SIGTERM)
+            rcs = {}
+            for n, p in procs.items():
+                try:
+                    rcs[n] = p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    rcs[n] = p.wait(timeout=30)
+        if rcs != {n: 0 for n in MEMBERS}:
+            with open(logp) as f:
+                raise AssertionError(f"member exit codes {rcs}: "
+                                     f"{f.read()[-2000:]}")
+    log("member_cluster", t0, step="read_back", acked=len(want),
+        read_back_from=len(MEMBERS), snapshot_files=snaps,
+        exit_codes=rcs, card_work=False)
+
+
 def ptxas_by_kernel(lines) -> dict:
     """ptxas's resource line for each compiled entry function."""
     out, name = {}, None
@@ -1899,6 +2251,7 @@ def main() -> int:
     entry = phase_kernel(dev)
     phase_round(dev)
     phase_small_card_vs_cpu(dev)
+    oracle_launches, oracle_by_variant = phase_raft_oracle(dev)
     launches, by_variant = phase_engine(dev)
     if launches <= 0:
         raise AssertionError("ring_resolve was not launched on the main path")
@@ -1929,6 +2282,7 @@ def main() -> int:
                              f"launched on the mesh engine's path: "
                              f"{em_by_variant}")
     mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(dev)
+    phase_member_cluster(dev)
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
@@ -1949,6 +2303,8 @@ def main() -> int:
             "by_layout": mesh_by_layout},
         "engine_mesh": {"launches": em_launches,
                         "by_variant": em_by_variant},
+        "raft_oracle": {"launches": oracle_launches,
+                        "by_variant": oracle_by_variant},
         "multihost_collective": {
             "launches": mc_launches, "by_variant": mc_by_variant,
             "by_rank": [ln["launches_by_variant"] for ln in mc_lines]}}

@@ -1,17 +1,26 @@
-"""Process entry for `etcd-tpu` (python -m etcd_tpu_torch): the engine mode.
+"""Process entry for `etcd-tpu` (python -m etcd_tpu_torch).
 
-Behavioral equivalent of reference etcdmain/etcd.go Main() for the
-multi-tenant engine: parse flags/env, default the data dir from the
-member name (etcd.go:96-99), identify whether the data dir was
-previously a member, a proxy or an engine (identifyDataDirOrDie
-etcd.go:376-404) and serve G tenant groups from one `MultiEngine` on
-the device `--engine-device` names (the card unless asked for the CPU),
-or with `--engine-mesh-peers-axis N` on a ("groups", "peers") mesh of
-every visible card (parallel/mesh.py).
+Behavioral equivalent of reference etcdmain/etcd.go Main(): parse
+flags/env, default the data dir from the member name (etcd.go:96-99),
+identify whether the data dir was previously a member, a proxy or an
+engine (identifyDataDirOrDie etcd.go:376-404) and start the matching
+mode:
 
-The member and proxy modes of the JAX package's CLI belong to the
-single-group server and the proxy, which this package does not have
-yet; asked for either, `main` says so and returns 1.
+- member mode (the default): one member of a static `--initial-cluster`
+  running one Raft group (`start_etcd`, reference startEtcd
+  etcd.go:127-231). It is the reference's scalar host path, as in the
+  JAX package: the Raft core, WAL, store and transports are host Python
+  and C, so this mode creates no tensor and no CUDA context and needs no
+  card;
+- engine mode (`--engine-groups G`): G tenant groups from one
+  `MultiEngine` on the device `--engine-device` names (the card unless
+  asked for the CPU), or with `--engine-mesh-peers-axis N` on a
+  ("groups", "peers") mesh of every visible card (parallel/mesh.py).
+
+The proxy mode and discovery bootstrap (`--discovery`,
+`--discovery-srv`) of the JAX package's CLI need the proxy and
+discovery clients, which this package does not have yet; asked for
+either, `main` says so and returns 1 before touching the data dir.
 """
 from __future__ import annotations
 
@@ -21,9 +30,9 @@ import os
 import signal
 import sys
 import threading
-from typing import Optional, Sequence, Tuple
-from urllib.parse import urlsplit
+from typing import Optional, Sequence
 
+from etcd_tpu_torch.embed import Etcd, EtcdConfig, _listen_addr
 from etcd_tpu_torch.utils.tlsutil import TLSInfo
 from etcd_tpu_torch.etcdmain.config import (ConfigError, MainConfig,
                                             parse_args)
@@ -50,9 +59,36 @@ def identify_data_dir(dir_: str) -> str:
     return present[0] if present else DIR_EMPTY
 
 
-def _listen_addr(url: str) -> Tuple[str, int]:
-    u = urlsplit(url)
-    return u.hostname or "127.0.0.1", u.port or 0
+def start_etcd(cfg: MainConfig) -> Etcd:
+    """Launch a consensus member (reference startEtcd etcd.go:127-231)
+    from a static initial cluster; `main` has refused discovery."""
+    ecfg = EtcdConfig(
+        name=cfg.name,
+        data_dir=cfg.data_dir,
+        initial_cluster=dict(cfg.initial_cluster),
+        listen_peer_urls=cfg.listen_peer_urls,
+        listen_client_urls=cfg.listen_client_urls,
+        advertise_client_urls=cfg.advertise_client_urls,
+        cluster_token=cfg.initial_cluster_token,
+        snap_count=cfg.snapshot_count,
+        tick_ms=cfg.heartbeat_interval,
+        election_ticks=cfg.election_ticks,
+        initial_cluster_state=cfg.initial_cluster_state,
+        force_new_cluster=cfg.force_new_cluster,
+        cors=cfg.cors,
+        client_tls=TLSInfo(cert_file=cfg.cert_file, key_file=cfg.key_file,
+                           ca_file=cfg.ca_file,
+                           client_cert_auth=cfg.client_cert_auth),
+        peer_tls=TLSInfo(cert_file=cfg.peer_cert_file,
+                         key_file=cfg.peer_key_file,
+                         ca_file=cfg.peer_ca_file,
+                         client_cert_auth=cfg.peer_client_cert_auth),
+    )
+    e = Etcd(ecfg)
+    e.start()
+    log.info("etcd-tpu member %s listening: client=%s peer=%s",
+             cfg.name, e.client_urls, e.peer_urls)
+    return e
 
 
 def _engine_mesh(cfg: MainConfig):
@@ -166,17 +202,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         log.info("already initialized as %s before, starting as etcd %s...",
                  which, which)
 
+    if cfg.is_proxy and which == DIR_MEMBER:
+        # Refuse rather than plant a proxy/ dir beside member/ — that would
+        # make the data dir permanently unidentifiable.
+        print(f"cannot start as proxy: data dir {cfg.data_dir} was "
+              f"previously initialized as a member", file=sys.stderr)
+        return 1
     if cfg.is_engine != (which == DIR_ENGINE) and which != DIR_EMPTY:
         requested = ("engine" if cfg.is_engine
                      else "proxy" if cfg.is_proxy else "member")
         print(f"cannot start as {requested}: data dir {cfg.data_dir} was "
               f"previously initialized as {which}", file=sys.stderr)
         return 1
-    if not cfg.is_engine:
-        mode, item = (("proxy", "A10") if cfg.is_proxy or which == DIR_PROXY
-                      else ("member", "A9"))
-        print(f"cannot start as {mode}: the {mode} mode is not in the "
-              f"PyTorch port yet (ROADMAP {item}); use --engine-groups",
+    missing = ("the proxy mode" if cfg.is_proxy or which == DIR_PROXY
+               else "--discovery" if cfg.discovery
+               else "--discovery-srv" if cfg.discovery_srv else None)
+    if missing:
+        print(f"cannot start: {missing} is not in the PyTorch port yet "
+              "(ROADMAP A10); use --initial-cluster or --engine-groups",
               file=sys.stderr)
         return 1
 
@@ -186,6 +229,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             signal.signal(sig, lambda *_: stop_ev.set())
         except ValueError:
             pass  # not the main thread (tests)
+
+    if not cfg.is_engine:
+        try:
+            member = start_etcd(cfg)
+        except Exception as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        try:
+            stop_ev.wait()
+        finally:
+            member.stop()
+        return 0
 
     try:
         runner = EngineServer(cfg)

@@ -1,9 +1,11 @@
-"""The port's CLI engine mode (etcd_tpu_torch.etcdmain): mirrors of the
-engine-mode tests of tests/test_etcdmain.py, the engine on a device mesh
+"""The port's CLI (etcd_tpu_torch.etcdmain): mirrors of the engine-mode
+and member-mode tests of tests/test_etcdmain.py, the member mode in
+process through `start_etcd`, the engine on a device mesh
 (`--engine-mesh-peers-axis`), the port's own refusals (no card without
-`--engine-device cpu`, the member and proxy modes), `python -m etcd_tpu_torch` as a process, and data dirs carried
-between the JAX package's CLI and the port's. Every engine here runs on
-the CPU. Tolerance: exact (values read back equal the values written)."""
+`--engine-device cpu`, the proxy mode and discovery), `python -m
+etcd_tpu_torch` as a process, and data dirs carried between the JAX
+package's CLI and the port's. Every engine here runs on the CPU.
+Tolerance: exact (values read back equal the values written)."""
 import json
 import os
 import signal
@@ -19,8 +21,10 @@ from etcd_tpu.etcdmain import parse_args as jax_parse_args
 from etcd_tpu.etcdmain.etcd import EngineServer as JaxEngineServer
 from etcd_tpu_torch.etcdmain import ConfigError, parse_args
 from etcd_tpu_torch.etcdmain.config import MainConfig
-from etcd_tpu_torch.etcdmain.etcd import (DIR_ENGINE, EngineServer,
-                                          identify_data_dir, main)
+from etcd_tpu_torch.etcdmain.etcd import (DIR_EMPTY, DIR_ENGINE, DIR_MEMBER,
+                                          DIR_PROXY, EngineServer,
+                                          identify_data_dir, main,
+                                          start_etcd)
 from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,14 +172,95 @@ def test_engine_mesh_flag_is_refused(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    ([], "A9"), (["--proxy", "on"], "A10")], ids=["member", "proxy"])
+    (["--discovery", "http://127.0.0.1:1/v2/keys/d"], "A10"),
+    (["--proxy", "on"], "A10")], ids=["discovery", "proxy"])
 def test_member_and_proxy_modes_are_not_in_the_port(tmp_path, capsys, argv,
                                                      item):
+    """What the port's CLI still refuses: the proxy mode and discovery
+    bootstrap (the member mode itself is served: the tests below and
+    tests/test_torch_member.py), before it touches the data dir."""
     d = tmp_path / "d"
     assert main(argv + ["--data-dir", str(d)]) == 1
     err = capsys.readouterr().err
     assert "not in the PyTorch port yet" in err and item in err
     assert not os.path.exists(d)
+
+
+def test_discovery_srv_is_refused_too(tmp_path, capsys):
+    d = tmp_path / "d"
+    assert main(["--discovery-srv", "example.com", "--data-dir",
+                 str(d)]) == 1
+    err = capsys.readouterr().err
+    assert "--discovery-srv" in err and "A10" in err
+    assert not os.path.exists(d)
+
+
+def test_identify_data_dir(tmp_path):
+    """Mirror of tests/test_etcdmain.py's test of this name."""
+    assert identify_data_dir(str(tmp_path / "nope")) == DIR_EMPTY
+    d = tmp_path / "m"
+    (d / "member").mkdir(parents=True)
+    assert identify_data_dir(str(d)) == DIR_MEMBER
+    p = tmp_path / "p"
+    (p / "proxy").mkdir(parents=True)
+    assert identify_data_dir(str(p)) == DIR_PROXY
+    (p / "member").mkdir()
+    with pytest.raises(ConfigError):
+        identify_data_dir(str(p))
+
+
+def test_member_dir_refuses_proxy_mode(tmp_path):
+    """Mirror of tests/test_etcdmain.py's test of this name: no proxy/
+    dir is planted beside member/."""
+    d = tmp_path / "was-member"
+    (d / "member").mkdir(parents=True)
+    assert main(["--proxy", "on", "--data-dir", str(d)]) == 1
+    assert identify_data_dir(str(d)) == DIR_MEMBER
+
+
+def test_member_mode_refuses_an_engine_dir(tmp_path, capsys):
+    d = tmp_path / "was-engine"
+    (d / "engine").mkdir(parents=True)
+    assert main(["--data-dir", str(d)]) == 1
+    assert "previously initialized as engine" in capsys.readouterr().err
+    assert sorted(os.listdir(d)) == ["engine"]
+
+
+def test_start_etcd_serves_a_member_and_restarts(tmp_path):
+    """The CLI's member mode in process: flags -> start_etcd -> a member
+    serving /v2/keys, /v2/members and /v3/kv; the data dir is a member's,
+    and a restart from it serves the write."""
+    from test_http import free_ports, req
+    pport, cport = free_ports(2)
+    d = tmp_path / "m0"
+    flags = ["--name", "m0", "--data-dir", str(d),
+             "--initial-cluster", f"m0=http://127.0.0.1:{pport}",
+             "--listen-peer-urls", f"http://127.0.0.1:{pport}",
+             "--listen-client-urls", f"http://127.0.0.1:{cport}",
+             "--advertise-client-urls", f"http://127.0.0.1:{cport}",
+             "--heartbeat-interval", "10", "--election-timeout", "100"]
+    m = start_etcd(parse_args(flags, env={}))
+    try:
+        assert m.wait_leader(30)
+        base = m.client_urls[0]
+        st, _, body = req("PUT", base + "/v2/keys/cli", b"value=member",
+                          FORM)
+        assert st == 201 and body["node"]["value"] == "member"
+        st, _, body = req("GET", base + "/v2/members")
+        assert [x["name"] for x in body["members"]] == ["m0"]
+        st, _, body = req("POST", base + "/v3/kv/put",
+                          b'{"key": "YQ==", "value": "Yg=="}')
+        assert st == 200
+    finally:
+        m.stop()
+    assert identify_data_dir(str(d)) == DIR_MEMBER
+    m = start_etcd(parse_args(flags, env={}))
+    try:
+        assert m.wait_leader(30)
+        assert req("GET", m.client_urls[0] + "/v2/keys/cli")[2]["node"][
+            "value"] == "member"
+    finally:
+        m.stop()
 
 
 def test_no_card_refuses_and_leaves_the_data_dir_empty(tmp_path, capsys):

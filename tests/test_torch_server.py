@@ -1,0 +1,414 @@
+"""The port's single-group server (etcd_tpu_torch.server.EtcdServer over
+the scalar Raft, the WAL, the snapshotter and the C store) against the
+JAX package's.
+
+1. tests/test_server.py's cases, compiled against the port
+   (tests/port_tests.py): an in-process cluster on the in-memory
+   transport; two of them are mirrors (below).
+2. The differential: one request stream (PUT, CAS, in-order POST, dirs,
+   TTL expiry by SYNC, CAD, DELETE, quorum GET, v3 put, range and txn)
+   through a one-member JAX server and a one-member port server, each on
+   a clock the test advances and with its request ids pinned. Responses,
+   the store dump, the decoded WAL entries of the stream and the v3
+   range must be equal.
+3. A data dir written by one package's server restarts under the other's
+   (snapshot plus WAL) and serves every acked key and the v3 keyspace.
+4. WAL segments and snapshot files written by the two packages for the
+   same records are byte-identical, with the port's C codec and with its
+   `_c_*` entry points None.
+
+Tolerance: exact everywhere."""
+import importlib
+import os
+import time
+
+import pytest
+
+from etcd_tpu_torch import native
+from etcd_tpu_torch import store as torch_store
+from port_tests import on_the_port
+
+_srv = on_the_port("test_server")
+cluster = _srv.cluster
+TestTTL = _srv.TestTTL
+TestMembership = _srv.TestMembership
+TestRestart = _srv.TestRestart
+
+
+class TestClusterBasics(_srv.TestClusterBasics):
+    def test_follower_write_forwarded(self, cluster):
+        """Mirror of the JAX test of this name, which has failed under
+        load in the full suite: the follower it picked had not yet heard
+        from the new leader, and its write was refused with "301: During
+        Leader Election". This one waits, with a deadline, until the
+        follower knows the leader, then asserts the same: the write
+        through the follower is applied, and a quorum read through it
+        returns it."""
+        lead = cluster.wait_leader()
+        fol = cluster.follower()
+        deadline = time.time() + 10
+        while fol.leader_id != lead.id and time.time() < deadline:
+            time.sleep(0.01)
+        assert fol.leader_id == lead.id
+        e = _srv.put(fol, "/fwd", "yes")
+        assert e.node.value == "yes"
+        assert _srv.get(fol, "/fwd", quorum=True).node.value == "yes"
+
+
+class TestSnapshot(_srv.TestSnapshot):
+    def test_lagging_follower_caught_up_via_msgsnap(self, tmp_path):
+        """Mirror of the JAX test of this name, which has failed under
+        load in the full suite. The same steps and assertions, each wait
+        on its condition with a deadline of 30 s: the isolated follower
+        misses enough entries that the leader's log is compacted past
+        it, and catches up through a snapshot install."""
+        c = _srv.ClusterFixture(tmp_path, snap_count=10, catch_up=2)
+        try:
+            lead = c.leader()
+            fol = c.follower()
+            c.net.isolate(fol.id)
+            for i in range(40):
+                _srv.put(lead, "/lag", f"v{i}")
+            deadline = time.time() + 30
+            while time.time() < deadline and lead._snapi == 0:
+                time.sleep(0.05)
+            assert lead.raft_storage.first_index() > 1, "log not compacted"
+            c.net.unisolate(fol.id)
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                try:
+                    if _srv.get(fol, "/lag").node.value == "v39":
+                        break
+                except _srv.errors.EtcdError:
+                    pass
+                time.sleep(0.05)
+            else:
+                raise AssertionError("follower never caught up via snapshot")
+            assert fol._snapi > 0 or fol.applied_index >= lead._snapi
+        finally:
+            c.stop_all()
+
+
+def test_a_forwarded_proposal_without_a_leader_leaves_the_loop_running(
+        tmp_path):
+    """A member that knows no leader drops a proposal a peer forwarded to
+    it (raft.go's stepFollower does) and its run loop goes on. The JAX
+    package's loop ends there: `raft.core` raises ProposalDroppedError
+    out of `node.step` (tests/test_v3_api.py's snapshot catch-up test
+    fails when it hits this, its cluster down to one live member). Here:
+    one member of a three-member cluster whose peers never start."""
+    from etcd_tpu_torch.raftpb import Entry, Message, MessageType
+    from etcd_tpu_torch.server.transport import (InMemoryNetwork,
+                                                 InMemoryTransport)
+    from etcd_tpu_torch.server.server import EtcdServer, ServerConfig
+    initial = {f"m{i}": [f"mem://{i}"] for i in range(3)}
+    srv = EtcdServer(ServerConfig(
+        name="m0", data_dir=str(tmp_path / "m0"), initial_cluster=initial,
+        tick_ms=1000, request_timeout=10.0),
+        InMemoryTransport(InMemoryNetwork(), 0))
+    srv.start()
+    try:
+        peer = next(m.id for m in srv.cluster.members() if m.id != srv.id)
+        srv.process(Message(type=MessageType.PROP, to=srv.id, frm=peer,
+                            entries=(Entry(data=b"forwarded"),)))
+        status = srv.raft_status()    # answered by the run loop
+        assert "error" not in status, status
+        assert srv._thread.is_alive()
+        assert srv.leader_id == 0
+    finally:
+        srv.stop()
+
+
+def test_the_port_runs_on_the_c_store():
+    """The cases above run on the port's C store and C WAL codec."""
+    assert torch_store.HAVE_NATIVE_STORE and native.HAVE_NATIVE
+    assert _srv.EtcdServer.__module__ == "etcd_tpu_torch.server.server"
+
+
+# -- the differential: one stream, two one-member servers ----------------------
+
+PKGS = ("etcd_tpu", "etcd_tpu_torch")
+T0 = 1_700_000_000.0
+
+
+class _Clock:
+    def __init__(self):
+        self.t = T0
+
+    def __call__(self):
+        return self.t
+
+
+class _Seq:
+    """Sequential request ids (idutil embeds wall time)."""
+
+    def __init__(self, start):
+        self.i = start
+
+    def next(self):
+        self.i += 1
+        return self.i
+
+
+def _mods(pkg):
+    return {n: importlib.import_module(f"{pkg}.{n}") for n in (
+        "errors", "server.server", "server.transport", "server.request",
+        "server.cluster", "wal", "snap", "raftpb")}
+
+
+class _Inbox:
+    def __init__(self, srv):
+        self.srv = srv
+
+    def put_nowait(self, m):
+        self.srv.process(m)
+
+
+def _member(pkg, data_dir, clock, snap_count=10000):
+    """A one-member server of package `pkg`, booted the same way every
+    time: it campaigns at once (MsgHup) rather than at an election
+    timeout, and its first tick, a second later, publishes its attributes
+    and starts the cluster-version negotiation; the boot is over at the
+    store's fourth write, the cluster version (the member's attributes
+    are the third). Ticks
+    come a second apart, so the publish is not proposed twice, and never
+    propose SYNC (sync_ticks is out of reach): every log entry after the
+    boot comes from the caller. The wait reads no key, so the store's
+    stats count only the caller's requests."""
+    m = _mods(pkg)
+    S, T = m["server.server"], m["server.transport"]
+    net = T.InMemoryNetwork()
+    tr = T.InMemoryTransport(net, 0)
+    cfg = S.ServerConfig(
+        name="m0", data_dir=str(data_dir),
+        initial_cluster={"m0": ["mem://0"]},
+        client_urls=("http://127.0.0.1/m0",), tick_ms=1000,
+        sync_ticks=1 << 30, snap_count=snap_count, request_timeout=30.0)
+    srv = S.EtcdServer(cfg, tr, clock=clock)
+    tr.id = srv.id
+    tr.report_unreachable = srv.report_unreachable
+    tr.report_snapshot = srv.report_snapshot
+    net.register(srv.id, _Inbox(srv))
+    srv.start()
+    srv.process(m["raftpb"].Message(type=m["raftpb"].MessageType.HUP,
+                                    frm=srv.id))
+    deadline = time.time() + 30
+    while not (srv.is_leader() and srv._published
+               and srv.store.current_index >= 4):
+        assert time.time() < deadline, "one-member boot did not finish"
+        time.sleep(0.01)
+    return srv
+
+
+def _answer(mods, fn):
+    """A response as plain data: an event's dict, a v3 result, or an
+    error's (code, message, cause, index)."""
+    try:
+        r = fn()
+    except mods["errors"].EtcdError as e:
+        return ("error", e.code, e.message, e.cause, e.index)
+    if hasattr(r, "to_dict"):
+        return r.to_dict()
+    return r
+
+
+def _stream(pkg, srv, clock):
+    """The scripted requests; their answers in order."""
+    m = _mods(pkg)
+    R = m["server.request"]
+    keys = m["server.cluster"].STORE_KEYS_PREFIX
+    out = []
+
+    def do(**kw):
+        if "path" in kw:
+            kw["path"] = keys + kw["path"]
+        out.append(_answer(m, lambda: srv.do(R.Request(**kw))))
+
+    def v3(**op):
+        out.append(_answer(m, lambda: srv.do(
+            R.Request(method=R.METHOD_V3, v3=op))))
+
+    do(method="PUT", path="/a", val="1")
+    do(method="PUT", path="/a", val="2", prev_value="1")
+    do(method="PUT", path="/a", val="x", prev_value="nope")
+    do(method="PUT", path="/a", val="y", prev_exist=False)
+    for i in range(3):
+        do(method="POST", path="/queue", val=f"job{i}")
+    do(method="GET", path="/queue", recursive=True, sorted=True)
+    do(method="PUT", path="/dir", dir=True)
+    do(method="PUT", path="/dir/k", val="v")
+    do(method="PUT", path="/dir", val="not-a-dir")
+    do(method="PUT", path="/ttl", val="t", expiration=clock() + 5)
+    do(method="PUT", path="/dir/ttl2", val="t2", expiration=clock() + 50)
+    clock.t += 2
+    do(method="GET", path="/ttl")
+    do(method="GET", path="/a", quorum=True)
+    do(method="DELETE", path="/a", prev_value="wrong")
+    do(method="DELETE", path="/a", prev_value="2")
+    do(method="DELETE", path="/missing")
+    do(method="DELETE", path="/dir")
+    clock.t += 10
+    do(method="SYNC", time=clock())
+    do(method="GET", path="/ttl")
+    do(method="GET", path="/dir", recursive=True, sorted=True)
+    do(method="DELETE", path="/dir", recursive=True)
+    do(method="GET", path="/", recursive=True, sorted=True)
+    b64 = {"foo": "Zm9v", "bar": "YmFy", "baz": "YmF6", "k2": "azI=",
+           "fo": "Zm8=", "fp": "ZnA="}
+    v3(type="put", key=b64["foo"], value=b64["bar"])
+    v3(type="put", key=b64["foo"], value=b64["baz"])
+    v3(type="range", key=b64["foo"], linearizable=True)
+    v3(type="txn",
+       compare=[{"key": b64["foo"], "target": "VALUE", "result": "EQUAL",
+                 "value": b64["baz"]}],
+       success=[{"request_put": {"key": b64["k2"], "value": b64["bar"]}}],
+       failure=[{"request_delete_range": {"key": b64["foo"]}}])
+    v3(type="txn",
+       compare=[{"key": b64["foo"], "target": "VERSION",
+                 "result": "GREATER", "version": 5}],
+       success=[{"request_put": {"key": b64["k2"], "value": b64["foo"]}}],
+       failure=[{"request_range": {"key": b64["k2"]}}])
+    v3(type="deleterange", key=b64["k2"])
+    v3(type="range", key=b64["fo"], range_end=b64["fp"], linearizable=True)
+    return out
+
+
+def _wal_entries(pkg, waldir):
+    m = _mods(pkg)
+    w = m["wal"].WAL.open(waldir, m["wal"].WalSnapshot(), write=False)
+    try:
+        _, hs, ents = w.read_all()
+    finally:
+        w.close()
+    return hs, ents
+
+
+def test_one_request_stream_through_both_servers(tmp_path):
+    got = {}
+    for pkg in PKGS:
+        clock = _Clock()
+        srv = _member(pkg, tmp_path / pkg, clock)
+        try:
+            boot = srv.applied_index
+            srv.reqid = _Seq(1000)
+            answers = _stream(pkg, srv, clock)
+            dump = srv.store.save()
+            v3 = srv.v3.range({"type": "range", "key": "AA==",
+                               "range_end": "AA=="})
+        finally:
+            srv.stop()
+        hs, ents = _wal_entries(pkg, srv.cfg.waldir)
+        got[pkg] = dict(answers=answers, dump=dump, v3=v3,
+                        ents=[(e.term, e.type, e.data) for e in ents
+                              if e.index > boot], commit=hs.commit - boot)
+    j, t = got["etcd_tpu"], got["etcd_tpu_torch"]
+    assert len(j["answers"]) == len(t["answers"]) == 31
+    for i, (a, b) in enumerate(zip(j["answers"], t["answers"])):
+        assert a == b, (i, a, b)
+    # Every kind of answer came through: events and v3 results (dicts),
+    # errors (tuples), and the SYNC's None; the SYNC expired /ttl.
+    assert {type(a).__name__ for a in j["answers"]} == {"dict", "tuple",
+                                                        "NoneType"}
+    assert sum(isinstance(a, tuple) for a in j["answers"]) == 7
+    assert j["answers"][20][:2] == ("error", 100)
+    assert j["dump"] == t["dump"]
+    assert j["v3"] == t["v3"] and j["v3"]["count"] == 1
+    # Every request but the five local GETs went through the log.
+    assert len(j["ents"]) == 26 and j["ents"] == t["ents"]
+    assert j["commit"] == t["commit"] == 26
+
+
+# -- a data dir carried across the packages ------------------------------------
+
+@pytest.mark.parametrize("writer,reader", [PKGS, PKGS[::-1]],
+                         ids=["jax-to-torch", "torch-to-jax"])
+def test_member_data_dir_restarts_in_the_other_package(tmp_path, writer,
+                                                       reader):
+    """Forty writes on one package's member (snapshots every 10 entries,
+    so the restart loads a snapshot and replays the WAL after it), then
+    the other package's member on the same data dir serves every acked
+    key, the v3 keyspace and a new write."""
+    d = tmp_path / "m0"
+    srv = _member(writer, d, _Clock(), snap_count=10)
+    m = _mods(writer)
+    R, keys = m["server.request"], m["server.cluster"].STORE_KEYS_PREFIX
+    try:
+        for i in range(40):
+            srv.do(R.Request(method="PUT", path=f"{keys}/k{i % 7}",
+                             val=f"{writer}-{i}"))
+        srv.do(R.Request(method=R.METHOD_V3, v3={
+            "type": "put", "key": "djM=", "value": "b2s="}))
+        want = srv.store.get(keys, True, True).to_dict()
+        v3 = srv.v3.range({"type": "range", "key": "djM="})
+        snaps = srv._snapi
+    finally:
+        srv.stop()
+    assert snaps > 0
+    assert any(n.endswith(".snap") for n in os.listdir(srv.cfg.snapdir))
+
+    srv = _member(reader, d, _Clock(), snap_count=10)
+    m = _mods(reader)
+    R, keys = m["server.request"], m["server.cluster"].STORE_KEYS_PREFIX
+    try:
+        assert srv.store.get(keys, True, True).to_dict() == want
+        assert srv.v3.range({"type": "range", "key": "djM="}) == v3
+        ev = srv.do(R.Request(method="PUT", path=f"{keys}/after",
+                              val=reader))
+        assert ev.node.value == reader
+    finally:
+        srv.stop()
+
+
+# -- WAL and snapshot files, byte for byte -------------------------------------
+
+def _write_files(pkg, d):
+    """The same WAL records and snapshot through package `pkg`'s WAL
+    (small segments, so the log cuts) and Snapshotter."""
+    m = _mods(pkg)
+    pb, W = m["raftpb"], m["wal"]
+    w = W.WAL.create(str(d / "wal"), b"meta-data", segment_size=4096)
+    try:
+        for i in range(1, 301, 3):
+            ents = [pb.Entry(term=1 + i // 100, index=i + j,
+                             data=bytes([i % 251]) * (40 + j))
+                    for j in range(3)]
+            w.save(pb.HardState(term=1 + i // 100, vote=1, commit=i), ents)
+            if i % 90 == 1:
+                w.save_snapshot(W.WalSnapshot(index=i + 2,
+                                              term=1 + i // 100))
+    finally:
+        w.close()
+    m["snap"].Snapshotter(str(d / "snap")).save_snap(pb.Snapshot(
+        data=b"store-image" * 50,
+        metadata=pb.SnapshotMetadata(conf_state=pb.ConfState(nodes=(1, 2, 3)),
+                                     index=298, term=3)))
+
+
+def _files(d):
+    return {os.path.relpath(os.path.join(dp, f), d):
+            open(os.path.join(dp, f), "rb").read()
+            for dp, _, fs in os.walk(d) for f in fs}
+
+
+@pytest.mark.parametrize("codec", ["c", "python"])
+def test_wal_and_snapshot_files_are_byte_identical(tmp_path, monkeypatch,
+                                                   codec):
+    if codec == "python":
+        monkeypatch.setattr(native, "_c_encode", None)
+        monkeypatch.setattr(native, "_c_scan", None)
+    else:
+        assert native._c_encode is not None and native._c_scan is not None
+    for pkg in PKGS:
+        _write_files(pkg, tmp_path / pkg)
+    j, t = _files(tmp_path / "etcd_tpu"), _files(tmp_path / "etcd_tpu_torch")
+    assert sum(n.startswith("wal/") for n in j) > 2    # the log was cut
+    assert sorted(j) == sorted(t)
+    for name in j:
+        assert j[name] == t[name], name
+    hs_j, ents_j = _wal_entries("etcd_tpu", str(tmp_path / "etcd_tpu" / "wal"))
+    hs_t, ents_t = _wal_entries("etcd_tpu_torch",
+                                str(tmp_path / "etcd_tpu" / "wal"))
+    assert (hs_t.term, hs_t.vote, hs_t.commit) == (hs_j.term, hs_j.vote,
+                                                   hs_j.commit)
+    assert [(e.term, e.index, e.data) for e in ents_t] == \
+        [(e.term, e.index, e.data) for e in ents_j]
