@@ -121,7 +121,31 @@ exit) if any phase fails:
    /v2/stats/self sane; no member among the card's compute apps (the
    member mode is host code: the card does no work here); rc 0 on
    SIGTERM for every member.
-11. one JSON line describing every kernel, then the last line
+11. tools_engine: etcd's own tools against the CLI's engine on the card
+   (the CLI shape at G, P, W), each pointed at a tenant's base URL
+   /tenants/{g}: three `python -m etcd_tpu_torch --discovery` members
+   (heartbeat 100 ms, election 1,000 ms) bootstrap from a registry in a
+   tenant's keyspace and a fourth process on the same token falls back
+   to proxy mode (200 PUTs through the proxy read back from every member,
+   a long-poll watch through it, none of the four on the card or mapping
+   torch, rc 0); `python -m etcd_tpu_torch.etcdctl.main` on three
+   tenants (set, get, mk twice, update, ls, rm, mkdir, rmdir; none
+   imports torch; seconds per command); the SDK (`KeysAPI(Client(...))`)
+   on 1,000 tenants from 100 threads (set and get back, in-order create,
+   a 20-way CAS race with one winner, a watcher that sees the next set,
+   tenant isolation; acked writes/s, ack p50/p99); SIGTERM, rc 0, the
+   server's ring_resolve launches from its stop line; `python -m
+   etcd_tpu_torch.tools.dump_logs --engine` lists every write the SDK
+   acked.
+12. latency_hops: `etcd_tpu_torch.tools.latency_hops` at G = 12,500,
+   32,768 and 100,000 (P=5, W=16, E=4, hops=3, full proposals; 40
+   warm-up rounds, every group led; 80 timed rounds, every group's
+   commit advancing): ms per round, commits/s, launches.
+13. soak_kernel: `etcd_tpu_torch.tools.soak kernel` for 5 schedules
+   (meta seed 0): random fault mixes of `oracle.run_equivalence` on the
+   card with the CUDA `ring_resolve`, equal to the scalar Raft after
+   every round; schedules per second and the starved count.
+14. one JSON line describing every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA device; without one it exits nonzero and prints no result.
@@ -1952,13 +1976,18 @@ def _member_leader(clients, among):
 
 
 def _until(cond, what, deadline_s=120.0, every=0.05):
+    """cond()'s first true value, polled until the deadline; an OSError
+    (a process still starting) counts as false."""
     t_end = time.monotonic() + deadline_s
     while True:
-        got = cond()
+        try:
+            got = cond()
+        except OSError:
+            got = None
         if got:
             return got
         if time.monotonic() > t_end:
-            raise AssertionError(f"member_cluster: timed out on {what}")
+            raise AssertionError(f"timed out on {what}")
         time.sleep(every)
 
 
@@ -2195,6 +2224,474 @@ def phase_member_cluster(dev, writes=1000, quorum_gets=100, cas_racers=20):
         exit_codes=rcs, card_work=False)
 
 
+REGISTRY_TOKEN = "chip-smoke"
+CTL_COMMANDS = (             # (etcdctl arguments, rc, expected stdout)
+    (("set", "/ctl/a", "1"), 0, "1"), (("get", "/ctl/a"), 0, "1"),
+    (("mk", "/ctl/b", "2"), 0, "2"), (("mk", "/ctl/b", "3"), 1, None),
+    (("update", "/ctl/b", "4"), 0, "4"), (("ls", "/"), 0, "/ctl"),
+    (("rm", "/ctl/a"), 0, ""), (("mkdir", "/ctl/d"), 0, ""),
+    (("rmdir", "/ctl/d"), 0, ""))
+
+
+def _imports_torch(importtime_stderr) -> bool:
+    """Whether `python -X importtime` imported torch, from its stderr."""
+    return any(ln.startswith("import time:") and ln.rsplit("|", 1)[-1]
+               .strip().split(".")[0] == "torch"
+               for ln in importtime_stderr.splitlines())
+
+
+def _loads_torch(pid) -> bool:
+    """Whether process pid has torch's shared libraries mapped."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in ln for ln in f)
+
+
+def _dumped_writes(text) -> set:
+    """{(group, method, path)} of every request in a `dump_logs --engine`
+    listing (single `req` entries and batched `multi[n]` ones)."""
+    out = set()
+    for line in text.splitlines():
+        cols = line.split("\t")
+        if len(cols) != 5 or not cols[0].isdigit():
+            continue
+        for item in filter(None, cols[4].split("; ")):
+            head, _, rest = item.partition(" ")
+            kind, _, body = rest.partition(" ")
+            if kind == "req" or kind.startswith("multi["):
+                g = int(head[1:head.index("@")])
+                for req in body.split(", "):
+                    method, _, path = req.partition(" ")
+                    out.add((g, method, path))
+    return out
+
+
+def phase_tools_engine(dev, groups=G, tenants=1000, cas_racers=20,
+                       proxy_writes=200, device_flags=()):
+    """etcd's own tools against the CLI's engine (`python -m
+    etcd_tpu_torch --engine-groups groups --engine-peers P --engine-window
+    W`, the CLI shape: max_ents 8, fsync on, rounds 1 ms apart), every
+    tool pointed at a tenant's base URL /tenants/{g}:
+
+    1. discovery and proxy: a registry of size 3 in tenant T's keyspace;
+       three `python -m etcd_tpu_torch --discovery URL` members
+       (heartbeat 100 ms, election 1,000 ms) bootstrap from it; a fourth
+       process on the same token finds the cluster full and falls back to
+       proxy mode; /v2/members shows 3, the registry holds 3; writes
+       through the proxy read back from every member; a long-poll watch
+       through the proxy fires; none of the four processes is among the
+       card's compute apps or maps torch; rc 0 on SIGTERM;
+    2. etcdctl: `python -m etcd_tpu_torch.etcdctl.main --peers
+       URL/tenants/g` on three tenants (set, get, mk twice, update, ls,
+       rm, mkdir, rmdir), each command's rc and output, and no command
+       imports torch (`-X importtime`);
+    3. the SDK: KeysAPI(Client([URL/tenants/g])) on `tenants` tenants
+       from 100 threads: set and get back, in-order create, a
+       `cas_racers`-way prev_value race with one winner, a watcher from
+       after_index that sees the next set, tenant isolation (KeysError
+       100). It starts with at least a fifth of a checkpoint interval of
+       rounds ahead, so that the engine's next checkpoint (which purges
+       the WAL before it) falls after the dump;
+    4. dump-logs: SIGTERM, rc 0, the server's stop line (its
+       ring_resolve launches); `python -m etcd_tpu_torch.tools.dump_logs
+       --engine DIR` rc 0, every write the SDK acked in it.
+    Returns the ring_resolve launches of the server process, in all and
+    by instantiation (its counts start at 0 with the process)."""
+    import torch
+    from etcd_tpu_torch.client import Client, KeysAPI, KeysError
+    from etcd_tpu_torch.server.engine import EngineConfig
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    gs = [i * groups // tenants for i in range(tenants)]
+    reg_t, ctl_ts, sdk_ts = gs[1], gs[2:5], gs[5:]
+    procs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-tools-") as d:
+        srv_log = os.path.join(d, "server.log")
+        mem_log = os.path.join(d, "members.log")
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}"
+        data = os.path.join(d, "cli")
+        try:
+            steps = _Steps()
+            apps0 = _compute_apps() if on_card else []
+            procs["server"] = _spawn(
+                ["etcd_tpu_torch", "--engine-groups", str(groups),
+                 "--engine-peers", str(P), "--engine-window", str(W),
+                 "--data-dir", data, "--listen-client-urls", url,
+                 *device_flags], srv_log)
+            _wait_status(url, groups, procs["server"])
+            steps.done("boot")
+            apps = _compute_apps() if on_card else []
+            if on_card and len(apps) != len(apps0) + 1:
+                raise AssertionError(f"the server is not on the card: "
+                                     f"{apps0} -> {apps}")
+
+            # 1. Discovery and the fallback proxy on tenant reg_t.
+            disc = (f"{url}/tenants/{reg_t}/v2/keys/_etcd/registry/"
+                    f"{REGISTRY_TOKEN}")
+            st, body = _http("PUT", f"{disc}/_config/size", b"value=3", FORM)
+            if st not in (200, 201):
+                raise AssertionError(f"registry size: {st} {body}")
+            ports = _free_ports(8)
+            names = ["m0", "m1", "m2", "m3"]
+            clients = {n: f"http://127.0.0.1:{ports[4 + i]}"
+                       for i, n in enumerate(names)}
+
+            def start(i):
+                n = names[i]
+                procs[n] = _spawn(
+                    ["etcd_tpu_torch", "--name", n,
+                     "--data-dir", os.path.join(d, n),
+                     "--listen-peer-urls", f"http://127.0.0.1:{ports[i]}",
+                     "--initial-advertise-peer-urls",
+                     f"http://127.0.0.1:{ports[i]}",
+                     "--listen-client-urls", clients[n],
+                     "--advertise-client-urls", clients[n],
+                     "--discovery", disc, "--heartbeat-interval", "100",
+                     "--election-timeout", "1000"], mem_log)
+
+            t1 = time.perf_counter()
+            for i in range(3):
+                start(i)
+
+            def three():
+                st, body = _http("GET", clients["m0"] + "/v2/members",
+                                 timeout=5)
+                ms = body["members"] if st == 200 else []
+                return (len(ms) == 3 and all(m["clientURLs"] for m in ms)
+                        and _member_leader(clients, names[:3]))
+
+            _until(three, "three discovery members")
+            boot_s = time.perf_counter() - t1
+            st, body = _http("GET", f"{disc}?recursive=true")
+            registered = [nd["value"] for nd in body["node"]["nodes"]
+                          if not nd["key"].endswith("_config")]
+            if len(registered) != 3:
+                raise AssertionError(f"registry: {body}")
+            start(3)                  # the cluster is full: a proxy
+            proxy = clients["m3"]
+            _until(lambda: _http("GET", proxy + "/v2/keys/",
+                                 timeout=5)[0] == 200, "the fallback proxy")
+            if not os.path.isdir(os.path.join(d, "m3", "proxy")) or \
+                    os.path.exists(os.path.join(d, "m3", "member")):
+                raise AssertionError("m3 did not fall back to a proxy")
+            steps.done("discovery")
+            lat = {}
+
+            def proxy_put(i):
+                t2 = time.perf_counter()
+                st, body = _http("PUT", f"{proxy}/v2/keys/px/{i}",
+                                 f"value=v{i}".encode(), FORM)
+                if st not in (200, 201) or body["node"]["value"] != f"v{i}":
+                    raise AssertionError(f"proxy PUT px/{i}: {st} {body}")
+                lat[i] = time.perf_counter() - t2
+
+            t1 = time.perf_counter()
+            errs = _in_threads(proxy_put, list(range(proxy_writes)))
+            proxy_s = time.perf_counter() - t1
+            if errs or len(lat) != proxy_writes:
+                raise AssertionError(f"proxy PUT failures: {errs[:5]}")
+
+            def read_back(n):
+                for i in range(proxy_writes):
+                    _until(lambda: _member_value(clients[n], f"px/{i}")
+                           == f"v{i}", f"px/{i} on {n}", deadline_s=60)
+
+            errs = _in_threads(read_back, names[:3], n_threads=3)
+            if errs:
+                raise AssertionError(f"read-back failures: {errs}")
+            got = {}
+
+            def watch():
+                got["w"] = _http("GET", proxy + "/v2/keys/pw?wait=true",
+                                 timeout=60)
+
+            th = threading.Thread(target=watch, daemon=True)
+            th.start()
+            time.sleep(0.5)
+            st, _ = _http("PUT", proxy + "/v2/keys/pw", b"value=fired",
+                          FORM)
+            th.join(30)
+            if th.is_alive() or got["w"][0] != 200 or \
+                    got["w"][1]["node"]["value"] != "fired":
+                raise AssertionError(f"watch through the proxy: {got}")
+            apps_tools = _compute_apps() if on_card else []
+            if len(apps_tools) != len(apps):
+                raise AssertionError(f"a member or the proxy holds a "
+                                     f"context on the card: {apps} -> "
+                                     f"{apps_tools}")
+            torch_maps = [n for n in names if _loads_torch(procs[n].pid)]
+            if torch_maps:
+                raise AssertionError(f"{torch_maps} mapped torch")
+            rcs = {}
+            for n in names:
+                procs[n].send_signal(signal.SIGTERM)
+            for n in names:
+                rcs[n] = procs[n].wait(timeout=60)
+            if rcs != dict.fromkeys(names, 0):
+                raise AssertionError(f"member and proxy exit codes {rcs}")
+            steps.done("proxy")
+            ms = np.array(sorted(lat.values())) * 1e3
+            log("tools_engine", t0, step="discovery_proxy", tenant=reg_t,
+                members=3, boot_s=boot_s, registered=len(registered),
+                proxy_writes=proxy_writes, proxy_write_s=proxy_s,
+                proxy_acked_writes_per_s=proxy_writes / proxy_s,
+                proxy_ack_p50_ms=float(np.percentile(ms, 50)),
+                proxy_ack_p99_ms=float(np.percentile(ms, 99)),
+                read_back_from=3, watch_fired=True,
+                compute_apps_with_server=len(apps),
+                compute_apps_with_members_and_proxy=len(apps_tools),
+                rcs=rcs, step_s={k: round(v, 3) for k, v in steps.items()})
+
+            # 2. etcdctl on three tenants, as processes, in parallel.
+            steps = _Steps()
+            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+            ctl_s = []
+
+            def ctl_tenant(g):
+                for args, rc, want in CTL_COMMANDS:
+                    t2 = time.perf_counter()
+                    res = subprocess.run(
+                        [sys.executable, "-X", "importtime", "-m",
+                         "etcd_tpu_torch.etcdctl.main", "--peers",
+                         f"{url}/tenants/{g}", *args], cwd=REPO, env=env,
+                        capture_output=True, text=True, timeout=120)
+                    ctl_s.append(time.perf_counter() - t2)
+                    out = res.stdout.strip()
+                    said = want is None or (want in out.split()
+                                            if args[0] == "ls"
+                                            else out == want)
+                    if res.returncode != rc or not said:
+                        raise AssertionError(
+                            f"etcdctl {args} on tenant {g}: rc "
+                            f"{res.returncode}, {out!r}, "
+                            f"{res.stderr[-300:]!r}")
+                    if _imports_torch(res.stderr):
+                        raise AssertionError(f"etcdctl {args} imported "
+                                             "torch")
+
+            errs = _in_threads(ctl_tenant, ctl_ts, n_threads=len(ctl_ts))
+            if errs:
+                raise AssertionError(f"etcdctl: {errs}")
+            steps.done("etcdctl")
+            log("tools_engine", t0, step="etcdctl", tenants=ctl_ts,
+                commands=len(ctl_s),
+                median_s_per_command=float(np.median(ctl_s)),
+                max_s_per_command=max(ctl_s), imported_torch=False,
+                step_s={k: round(v, 3) for k, v in steps.items()})
+
+            # 3. The SDK, with the next checkpoint far enough ahead.
+            steps = _Steps()
+            every = EngineConfig.checkpoint_rounds
+
+            def round_no():
+                return _http("GET", url + "/engine/status")[1]["round"]
+
+            r0 = round_no()
+            if every - r0 % every < every // 5:
+                _until(lambda: round_no() // every > r0 // every,
+                       "the engine's next checkpoint", deadline_s=300)
+                r0 = round_no()
+            steps.done("checkpoint_room")
+
+            def api(g):
+                return KeysAPI(Client([f"{url}/tenants/{g}"], timeout=60))
+
+            acked = {}                # (g, method, path) -> value
+            lock = threading.Lock()
+            lat = {}
+
+            def sdk_put(g):
+                t2 = time.perf_counter()
+                r = api(g).set("/sdk", f"s{g}")
+                if r.node.value != f"s{g}":
+                    raise AssertionError(f"SDK set on {g}: {r.node}")
+                lat[g] = time.perf_counter() - t2
+                with lock:
+                    acked[(g, "PUT", "/1/sdk")] = f"s{g}"
+
+            t1 = time.perf_counter()
+            errs = _in_threads(sdk_put, sdk_ts)
+            write_s = time.perf_counter() - t1
+            if errs or len(lat) != len(sdk_ts):
+                raise AssertionError(f"SDK set failures: {errs[:5]}")
+            steps.done("set")
+
+            def sdk_get(g):
+                if api(g).get("/sdk").node.value != f"s{g}":
+                    raise AssertionError(f"SDK get on {g}")
+
+            errs = _in_threads(sdk_get, sdk_ts)
+            if errs:
+                raise AssertionError(f"SDK get failures: {errs[:5]}")
+            steps.done("get")
+            g_q, g_cas, g_w, g_iso = sdk_ts[:4]
+            k = api(g_q)
+            r1 = k.create_in_order("/q", "one")
+            r2 = k.create_in_order("/q", "two")
+            nodes = k.get("/q", recursive=True, sorted=True).node.nodes
+            if not r1.node.key < r2.node.key or \
+                    [n.value for n in nodes] != ["one", "two"]:
+                raise AssertionError(f"in-order create: {nodes}")
+            acked[(g_q, "POST", "/1/q")] = None
+            k = api(g_cas)
+            k.set("/cas", "0")
+            acked[(g_cas, "PUT", "/1/cas")] = "0"
+            won, lost = [], []
+
+            def race(i):
+                try:
+                    api(g_cas).set("/cas", f"r{i}", prev_value="0")
+                    won.append(i)
+                except KeysError as e:
+                    if e.code != 101:
+                        raise
+                    lost.append(i)
+
+            errs = _in_threads(race, list(range(cas_racers)),
+                               n_threads=cas_racers)
+            if errs or len(won) != 1 or len(lost) != cas_racers - 1 or \
+                    k.get("/cas").node.value != f"r{won[0]}":
+                raise AssertionError(f"CAS race: winners {won}, {errs[:3]}")
+            k = api(g_w)
+            start_r = k.get("/sdk")
+            w = k.watcher("/sdk", after_index=start_r.node.modified_index)
+            seen = {}
+            th = threading.Thread(target=lambda: seen.update(
+                ev=w.next(timeout=10)), daemon=True)
+            th.start()
+            time.sleep(0.3)
+            k.set("/sdk", "watched")
+            th.join(12)
+            if th.is_alive() or seen.get("ev") is None or \
+                    seen["ev"].node.value != "watched":
+                raise AssertionError(f"watcher: {seen}")
+            api(g_iso).set("/iso", "only-here")
+            acked[(g_iso, "PUT", "/1/iso")] = "only-here"
+            try:
+                api(sdk_ts[4]).get("/iso")
+                raise AssertionError("tenant isolation: /iso leaked")
+            except KeysError as e:
+                if e.code != 100:
+                    raise
+            steps.done("sdk_checks")
+            ms = np.array(sorted(lat.values())) * 1e3
+            log("tools_engine", t0, step="sdk", tenants=len(sdk_ts),
+                write_s=write_s, acked_writes_per_s=len(sdk_ts) / write_s,
+                ack_p50_ms=float(np.percentile(ms, 50)),
+                ack_p99_ms=float(np.percentile(ms, 99)),
+                in_order=[r1.node.key, r2.node.key], cas_racers=cas_racers,
+                cas_winners=len(won), watch_fired=True,
+                isolation_error=100, round_at_start=r0,
+                step_s={k: round(v, 3) for k, v in steps.items()})
+
+            # 4. SIGTERM, then dump-logs over the engine's WAL.
+            steps = _Steps()
+            procs["server"].send_signal(signal.SIGTERM)
+            rc = procs["server"].wait(timeout=120)
+            if rc != 0:
+                raise AssertionError(f"server rc {rc} on SIGTERM")
+            with open(srv_log) as f:
+                stops = [json.loads(ln.split(STOP_LINE, 1)[1]) for ln in f
+                         if STOP_LINE in ln]
+            if len(stops) != 1 or on_card and not (
+                    stops[0]["te5"] and stops[0]["generic"]):
+                raise AssertionError(f"server stop line: {stops}")
+            steps.done("sigterm")
+            t1 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "etcd_tpu_torch.tools.dump_logs",
+                 "--engine", os.path.join(data, "engine")], cwd=REPO,
+                env=env, capture_output=True, text=True, timeout=600)
+            dump_s = time.perf_counter() - t1
+            if res.returncode != 0:
+                raise AssertionError(f"dump_logs rc {res.returncode}: "
+                                     f"{res.stderr[-2000:]}")
+            head = res.stdout.split("\n", 1)[0]
+            if head.startswith("Checkpoint: round="):
+                ckpt = int(head.split("=", 1)[1].split()[0])
+                if ckpt >= r0:
+                    raise AssertionError(f"a checkpoint at round {ckpt} "
+                                         f"covers the SDK's writes (from "
+                                         f"round {r0})")
+            dumped = _dumped_writes(res.stdout)
+            missing = [w for w in acked if w not in dumped]
+            if missing:
+                raise AssertionError(f"acked writes not in the dump: "
+                                     f"{missing[:5]}")
+            entries = sum(len(list(filter(None, ln.split("\t")[4]
+                                          .split("; "))))
+                          for ln in res.stdout.splitlines()
+                          if ln.split("\t")[0].isdigit())
+            steps.done("dump")
+            log("tools_engine", t0, step="dump_logs", rc=rc, dump_rc=0,
+                dump_s=dump_s, checkpoint=head, entries=entries,
+                requests_in_dump=len(dumped), acked_checked=len(acked),
+                launches=sum(stops[0].values()),
+                launches_by_variant=stops[0],
+                step_s={k: round(v, 3) for k, v in steps.items()})
+        except BaseException:
+            for path in (srv_log, mem_log):
+                if os.path.exists(path):
+                    with open(path, "rb") as f:
+                        print(f.read()[-3000:].decode(errors="replace"),
+                              file=sys.stderr)
+            raise
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+    return sum(stops[0].values()), stops[0]
+
+
+LATENCY_GROUPS = (12_500, 32_768, 100_000)
+
+
+def phase_latency_hops(dev, groups=LATENCY_GROUPS):
+    """`etcd_tpu_torch.tools.latency_hops` in process: at each G, P=5,
+    W=16, E=4, hops=3, 40 warm-up rounds (every group led) and 80 timed
+    rounds under full proposals (every group's commit advances): ms per
+    round and commits/s. Returns the ring_resolve launches of the phase,
+    in all and by instantiation."""
+    import torch
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    from etcd_tpu_torch.tools.latency_hops import measure
+    t0 = time.perf_counter()
+    ring_resolve.launches = 0            # this path starts here
+    for k in ring_resolve.launches_by_variant:
+        ring_resolve.launches_by_variant[k] = 0
+    for g in groups:
+        log("latency_hops", t0, **measure(g, device=dev))
+    by = dict(ring_resolve.launches_by_variant)
+    if torch.device(dev).type == "cuda" and not (by["te4"] and by["te5"]):
+        raise AssertionError(f"latency_hops: kernels launched {by}")
+    return ring_resolve.launches, by
+
+
+def phase_soak_kernel(dev, schedules=5, meta_seed=0):
+    """`etcd_tpu_torch.tools.soak kernel` in process: `schedules` random
+    fault mixes (meta seed `meta_seed`) of `oracle.run_equivalence` on
+    dev, the round with the CUDA ring_resolve equal to the scalar Raft
+    after every round. Returns the ring_resolve launches of the phase."""
+    import torch
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    from etcd_tpu_torch.tools.soak import soak_kernel
+    t0 = time.perf_counter()
+    ring_resolve.launches = 0            # this path starts here
+    for k in ring_resolve.launches_by_variant:
+        ring_resolve.launches_by_variant[k] = 0
+    out = soak_kernel(schedules, meta_seed=meta_seed, device=dev)
+    by = dict(ring_resolve.launches_by_variant)
+    if torch.device(dev).type == "cuda" and not ring_resolve.launches:
+        raise AssertionError("soak_kernel: ring_resolve was not launched")
+    log("soak_kernel", t0, passed=out["schedules"], starved=out["starved"],
+        meta_seed=meta_seed, seconds=out["seconds"],
+        schedules_per_s=out["schedules"] / out["seconds"],
+        equal_to_scalar_raft=True,
+        launches=ring_resolve.launches, launches_by_variant=by)
+    return ring_resolve.launches, by
+
+
 def ptxas_by_kernel(lines) -> dict:
     """ptxas's resource line for each compiled entry function."""
     out, name = {}, None
@@ -2283,6 +2780,9 @@ def main() -> int:
                              f"{em_by_variant}")
     mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(dev)
     phase_member_cluster(dev)
+    tools_launches, tools_by_variant = phase_tools_engine(dev)
+    hops_launches, hops_by_variant = phase_latency_hops(dev)
+    soak_launches, soak_by_variant = phase_soak_kernel(dev)
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
@@ -2307,7 +2807,13 @@ def main() -> int:
                         "by_variant": oracle_by_variant},
         "multihost_collective": {
             "launches": mc_launches, "by_variant": mc_by_variant,
-            "by_rank": [ln["launches_by_variant"] for ln in mc_lines]}}
+            "by_rank": [ln["launches_by_variant"] for ln in mc_lines]},
+        "tools_engine": {"launches": tools_launches,
+                         "by_variant": tools_by_variant},
+        "latency_hops": {"launches": hops_launches,
+                         "by_variant": hops_by_variant},
+        "soak_kernel": {"launches": soak_launches,
+                        "by_variant": soak_by_variant}}
     entry["equal_to_plain"] = True
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

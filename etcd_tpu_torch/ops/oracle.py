@@ -190,11 +190,12 @@ def run_equivalence(seed, groups=5, peers=3, window=32, max_ents=3,
                     partition_every=45, partition_len=12,
                     min_live_groups=None, n_peers=None, tick_p=1.0,
                     resolve=ring_resolve,
-                    on_round: Optional[Callable] = None):
-    """One schedule of the JAX package's equivalence tests on the CPU,
-    every group mirrored: the same numpy draws in the same order, so a
-    seed gives the same faults, proposals and ticks as there. Returns the
-    final state.
+                    on_round: Optional[Callable] = None, device="cpu"):
+    """One schedule of the JAX package's equivalence tests, every group
+    mirrored: the same numpy draws in the same order, so a seed gives the
+    same faults, proposals and ticks as there. The round runs on `device`
+    (on the card `resolve` launches the CUDA kernel); the draws and the
+    scalar Raft stay on the host. Returns the final state.
 
     min_live_groups: how many groups must have committed something at
     the end (default groups-1). n_peers: live slots out of `peers`.
@@ -203,7 +204,8 @@ def run_equivalence(seed, groups=5, peers=3, window=32, max_ents=3,
     with its numpy inputs and the kernel's new state."""
     cfg = KernelConfig(groups=groups, peers=peers, window=window,
                        max_ents=max_ents)
-    st = init_state(cfg, n_peers=n_peers, device="cpu")
+    dev = torch.device(device)
+    st = init_state(cfg, n_peers=n_peers, device=dev)
     mirror = Mirror(cfg, n_peers=n_peers)
     rng = np.random.RandomState(seed)
     G, P, F = groups, peers, cfg.fields
@@ -260,17 +262,18 @@ def run_equivalence(seed, groups=5, peers=3, window=32, max_ents=3,
 
         tick = True if tick_p >= 1.0 else bool(rng.rand() < tick_p)
         st, outbox = kernel.step(
-            cfg, st, torch.from_numpy(faulted), torch.from_numpy(pc),
-            torch.from_numpy(ps), tick, resolve=resolve)
+            cfg, st, torch.from_numpy(faulted).to(dev),
+            torch.from_numpy(pc).to(dev), torch.from_numpy(ps).to(dev),
+            tick, resolve=resolve)
         mirror.run_round(faulted, pc, ps, tick=tick)
 
         _expect(not bool(st.need_host.any()), "need_host at round", i)
         mirror.assert_equal(snapshot(st), i)
         if on_round is not None:
             on_round(i, faulted, pc, ps, tick, st)
-        inbox = kernel.route_local(outbox).numpy()
+        inbox = kernel.route_local(outbox).cpu().numpy()
     floor = groups - 1 if min_live_groups is None else min_live_groups
-    commit = st.commit.amax(dim=1).numpy()
+    commit = st.commit.amax(dim=1).cpu().numpy()
     _expect((commit > 0).sum() >= floor, "too few groups committed", commit)
     return st
 

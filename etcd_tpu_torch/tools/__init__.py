@@ -3,4 +3,9 @@
 `multihost_supervisor`; the single-host engine's `pool_serve` (K engine
 processes behind one router) and `ingress_serve` (N ingress processes in
 front of one upstream); `scale_curve`, `profile_engine`, `etcd_top` and
-`tsan_check`."""
+`tsan_check`; etcd's own tools `dump_logs` (a data dir's snapshot and
+WAL, an engine's WAL, a member's v3 backend) and `functional_tester`
+(the chaos harness over member processes); and the card tools
+`latency_hops` (the round's propose->commit time against G), `soak`
+(seeded fault campaigns) and `multihost_bench` (multi-host against
+single-host engines)."""

@@ -1,5 +1,6 @@
-"""What the launchers give their child processes: free localhost ports
-and an environment that imports this checkout's package."""
+"""What the launchers give their child processes (free localhost ports
+and an environment that imports this checkout's package), and the card
+tools' refusal to run without a card."""
 import os
 import random
 import socket
@@ -43,3 +44,16 @@ def free_ports(n: int) -> list:
     if len(out) == n:
         return out
     raise RuntimeError("no free port below the ephemeral range")
+
+
+def require_device(device: str, how: str) -> None:
+    """Exit 1 with a message when `device` is the card and there is no
+    card: a card tool goes on on the CPU only when asked to (`how` says
+    how to ask)."""
+    import sys
+
+    import torch
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        print(f"device {device} but no CUDA device is available; {how} to "
+              "run on the CPU", file=sys.stderr)
+        sys.exit(1)

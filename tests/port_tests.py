@@ -1,4 +1,5 @@
-"""A test module of the JAX package, loaded against the port.
+"""A test module of the JAX package, loaded against the port; and
+`loads_torch(pid)`, whether a process of the port mapped torch.
 
 `on_the_port("test_server")` compiles tests/test_server.py with every
 import line's `etcd_tpu` renamed `etcd_tpu_torch` (the rename that
@@ -25,3 +26,10 @@ def on_the_port(name: str) -> types.ModuleType:
     sys.modules[mod.__name__] = mod
     exec(compile(src, path, "exec"), mod.__dict__)
     return mod
+
+
+def loads_torch(pid) -> bool:
+    """Whether process pid has torch's shared libraries mapped (a member,
+    proxy or client process of the port must not)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("libtorch" in ln for ln in f)

@@ -1,10 +1,13 @@
 """The port's CLI (etcd_tpu_torch.etcdmain): mirrors of the engine-mode
 and member-mode tests of tests/test_etcdmain.py, the member mode in
 process through `start_etcd`, the engine on a device mesh
-(`--engine-mesh-peers-axis`), the port's own refusals (no card without
-`--engine-device cpu`, the proxy mode and discovery), `python -m
-etcd_tpu_torch` as a process, and data dirs carried between the JAX
-package's CLI and the port's. Every engine here runs on the CPU.
+(`--engine-mesh-peers-axis`), the port's own refusal (no card without
+`--engine-device cpu`), the proxy mode (`--proxy on` as a process, and
+test_etcdmain.py's proxy cases compiled against the port through
+tests/port_tests.py), discovery (`--discovery` as a process,
+`--discovery-srv` through a fake resolver), `python -m etcd_tpu_torch`
+as a process, and data dirs carried between the JAX package's CLI and
+the port's. Every engine here runs on the CPU.
 Tolerance: exact (values read back equal the values written)."""
 import json
 import os
@@ -23,9 +26,10 @@ from etcd_tpu_torch.etcdmain import ConfigError, parse_args
 from etcd_tpu_torch.etcdmain.config import MainConfig
 from etcd_tpu_torch.etcdmain.etcd import (DIR_EMPTY, DIR_ENGINE, DIR_MEMBER,
                                           DIR_PROXY, EngineServer,
-                                          identify_data_dir, main,
-                                          start_etcd)
+                                          ProxyServer, identify_data_dir,
+                                          main, start_etcd)
 from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
+from port_tests import loads_torch, on_the_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORM = {"Content-Type": "application/x-www-form-urlencoded"}
@@ -171,28 +175,169 @@ def test_engine_mesh_flag_is_refused(tmp_path, capsys):
     assert not os.path.exists(tmp_path / "mesh2")
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--discovery", "http://127.0.0.1:1/v2/keys/d"], "A10"),
-    (["--proxy", "on"], "A10")], ids=["discovery", "proxy"])
-def test_member_and_proxy_modes_are_not_in_the_port(tmp_path, capsys, argv,
-                                                     item):
-    """What the port's CLI still refuses: the proxy mode and discovery
-    bootstrap (the member mode itself is served: the tests below and
-    tests/test_torch_member.py), before it touches the data dir."""
-    d = tmp_path / "d"
-    assert main(argv + ["--data-dir", str(d)]) == 1
-    err = capsys.readouterr().err
-    assert "not in the PyTorch port yet" in err and item in err
-    assert not os.path.exists(d)
+def _member(tmp_path, name="m0"):
+    """One port member in process, with its peer and client URLs."""
+    from etcd_tpu_torch.embed import Etcd, EtcdConfig
+    from test_http import free_ports
+    pport, cport = free_ports(2)
+    m = Etcd(EtcdConfig(
+        name=name, data_dir=str(tmp_path / name),
+        initial_cluster={name: [f"http://127.0.0.1:{pport}"]},
+        listen_client_urls=[f"http://127.0.0.1:{cport}"],
+        advertise_client_urls=[f"http://127.0.0.1:{cport}"],
+        tick_ms=10, request_timeout=5.0))
+    m.start()
+    assert m.wait_leader(10)
+    return m
 
 
-def test_discovery_srv_is_refused_too(tmp_path, capsys):
-    d = tmp_path / "d"
-    assert main(["--discovery-srv", "example.com", "--data-dir",
-                 str(d)]) == 1
-    err = capsys.readouterr().err
-    assert "--discovery-srv" in err and "A10" in err
-    assert not os.path.exists(d)
+def _until_served(url, proc, timeout=60.0):
+    from test_http import req
+    deadline = time.monotonic() + timeout
+    while True:
+        assert proc.poll() is None, proc.communicate(timeout=10)
+        try:
+            st, _, body = req("GET", url, timeout=5)
+            if st == 200:
+                return body
+        except OSError:
+            pass
+        assert time.monotonic() < deadline, f"{url} never served"
+        time.sleep(0.2)
+
+
+def _sigterm(p):
+    p.send_signal(signal.SIGTERM)
+    out, err = p.communicate(timeout=60)
+    assert p.returncode == 0, err[-2000:]
+
+
+def test_proxy_flag_serves_a_members_keys(tmp_path):
+    """`python -m etcd_tpu_torch --proxy on` (refused before the port had
+    the proxy): a process that forwards to the member named by
+    --initial-cluster, writes its cluster file, loads no torch and exits
+    0 on SIGTERM."""
+    from test_http import free_ports, req
+    m = _member(tmp_path)
+    (port,) = free_ports(1)
+    base = f"http://127.0.0.1:{port}"
+    d = tmp_path / "pxy"
+    p = _spawn(["--proxy", "on", "--listen-client-urls", base,
+                "--initial-cluster", f"m0={m.peer_urls[0]}"], d)
+    try:
+        _until_served(base + "/v2/keys/", p)
+        st, _, body = req("PUT", base + "/v2/keys/viaproxy", b"value=p",
+                          FORM)
+        assert st == 201 and body["node"]["value"] == "p"
+        assert req("GET", m.client_urls[0] + "/v2/keys/viaproxy")[2][
+            "node"]["value"] == "p"
+        assert not loads_torch(p.pid)
+        _sigterm(p)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate(timeout=30)
+        m.stop()
+    assert identify_data_dir(str(d)) == DIR_PROXY
+    with open(d / "proxy" / "cluster") as f:
+        assert json.load(f)["PeerURLs"] == list(m.peer_urls)
+
+
+def test_discovery_flag_joins_a_registry(tmp_path):
+    """`python -m etcd_tpu_torch --discovery URL` (refused before the port
+    had discovery): the member registers itself in a registry of size 1
+    hosted by another member, boots as that one-member cluster, serves,
+    loads no torch and exits 0 on SIGTERM."""
+    from test_http import free_ports, req
+    reg = _member(tmp_path, "reg")
+    pport, cport = free_ports(2)
+    base = f"http://127.0.0.1:{cport}"
+    disc = f"{reg.client_urls[0]}/v2/keys/_etcd/registry/one"
+    assert req("PUT", disc + "/_config/size", b"value=1", FORM)[0] == 201
+    p = _spawn(["--name", "d0", "--discovery", disc,
+                "--listen-peer-urls", f"http://127.0.0.1:{pport}",
+                "--initial-advertise-peer-urls", f"http://127.0.0.1:{pport}",
+                "--listen-client-urls", base,
+                "--advertise-client-urls", base,
+                "--heartbeat-interval", "10", "--election-timeout", "100"],
+               tmp_path / "d0")
+    try:
+        body = _until_served(base + "/v2/members", p)
+        assert [x["name"] for x in body["members"]] == ["d0"]
+        st, _, body = req("GET", disc + "?recursive=true")
+        entries = [n["value"] for n in body["node"]["nodes"]
+                   if not n["key"].endswith("_config")]
+        assert entries == [f"d0=http://127.0.0.1:{pport}"]
+        # Writes during the first election answer an error: retry like a
+        # real client.
+        deadline = time.monotonic() + 30
+        while req("PUT", base + "/v2/keys/joined", b"value=1",
+                  FORM)[0] != 201:
+            assert time.monotonic() < deadline, "no write was acked"
+            time.sleep(0.2)
+        assert not loads_torch(p.pid)
+        _sigterm(p)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate(timeout=30)
+        reg.stop()
+    assert identify_data_dir(str(tmp_path / "d0")) == DIR_MEMBER
+
+
+def test_discovery_srv_reaches_srv_cluster(tmp_path, monkeypatch):
+    """--discovery-srv (refused before the port had discovery):
+    start_etcd asks `srv_cluster` for the domain's SRV records (a fake
+    resolver here: no DNS) and boots the member from the cluster they
+    name."""
+    import etcd_tpu_torch.discovery as discovery
+    from test_http import free_ports, req
+    pport, cport = free_ports(2)
+    asked = []
+    real = discovery.srv_cluster
+
+    def lookup(service, proto, domain):
+        asked.append((service, proto, domain))
+        return [] if service == "etcd-server-ssl" else [("127.0.0.1",
+                                                         pport)]
+
+    monkeypatch.setattr(discovery, "srv_cluster",
+                        lambda domain, name, apurls: real(
+                            domain, name, apurls, lookup=lookup))
+    flags = ["--name", "s0", "--data-dir", str(tmp_path / "s0"),
+             "--discovery-srv", "example.com",
+             "--listen-peer-urls", f"http://127.0.0.1:{pport}",
+             "--initial-advertise-peer-urls", f"http://127.0.0.1:{pport}",
+             "--listen-client-urls", f"http://127.0.0.1:{cport}",
+             "--advertise-client-urls", f"http://127.0.0.1:{cport}",
+             "--heartbeat-interval", "10", "--election-timeout", "100"]
+    m = start_etcd(parse_args(flags, env={}))
+    try:
+        assert asked == [("etcd-server-ssl", "tcp", "example.com"),
+                         ("etcd-server", "tcp", "example.com")]
+        assert m.cfg.initial_cluster == {
+            "s0": [f"http://127.0.0.1:{pport}"]}
+        assert m.cfg.cluster_token == "example.com"
+        assert m.wait_leader(30)
+        st, _, body = req("PUT", m.client_urls[0] + "/v2/keys/srv",
+                          b"value=1", FORM)
+        assert st == 201
+    finally:
+        m.stop()
+
+
+_em = on_the_port("test_etcdmain")
+one_member = _em.one_member
+test_proxy_forwards_kv = _em.test_proxy_forwards_kv
+test_readonly_proxy_rejects_writes = _em.test_readonly_proxy_rejects_writes
+test_proxy_no_endpoints_503 = _em.test_proxy_no_endpoints_503
+test_proxy_passes_watch_longpoll = _em.test_proxy_passes_watch_longpoll
+test_proxy_fails_over_dead_endpoint = _em.test_proxy_fails_over_dead_endpoint
+
+
+def test_the_proxy_cases_build_the_ports_modules():
+    assert _em.ProxyServer is ProxyServer
+    assert _em.Director.__module__ == "etcd_tpu_torch.proxy.director"
 
 
 def test_identify_data_dir(tmp_path):

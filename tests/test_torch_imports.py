@@ -35,7 +35,12 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "migrate/etcd4.py", "migrate/standby.py", "migrate/__init__.py",
             "server/__init__.py", "etcdhttp/peer.py",
             "etcdhttp/v3.py", "etcdhttp/__init__.py",
-            "rafthttp/transport.py", "rafthttp/__init__.py", "embed.py"]
+            "rafthttp/transport.py", "rafthttp/__init__.py", "embed.py",
+            "client/__init__.py", "client/client.py", "client/keys.py",
+            "client/members.py", "etcdctl/__init__.py", "etcdctl/main.py",
+            "proxy/__init__.py", "proxy/director.py", "proxy/reverse.py",
+            "discovery/__init__.py", "discovery/discovery.py",
+            "discovery/srv.py"]
 # Where a copy's source is not at the same path under etcd_tpu/.
 SOURCES = {"tools/etcd_top.py": "scripts/etcd_top.py"}
 # Docstring lines (1-based) a copy rewords: raftpb.py names etcd's raftpb
@@ -44,7 +49,13 @@ REWORDED = {"raftpb.py": {4}}
 NATIVE_C = ["native/walcodec.c", "native/ingresscore.c",
             "native/storecore.c"]
 TOOLS = ["pool_serve", "ingress_serve", "scale_curve", "profile_engine",
-         "etcd_top", "tsan_check"]
+         "etcd_top", "tsan_check", "dump_logs", "functional_tester",
+         "latency_hops", "soak", "multihost_bench"]
+# The tools that run rounds on a device: "cuda" unless asked for the CPU.
+CARD_TOOLS = {"latency_hops": (["64"], "--device cpu", {}),
+              "soak": (["kernel", "1"], "--device cpu", {}),
+              "multihost_bench": ([], "MHB_DEVICE=cpu",
+                                  {"MHB_OUT": "unused.json"})}
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
 
@@ -203,6 +214,58 @@ def test_member_server_differs_only_by_the_dropped_proposal_guard():
     assert ours[i + 8:] == theirs[i + 1:]
 
 
+def test_dump_logs_differs_only_by_usage_and_batched_entries():
+    """tools/dump_logs.py is the JAX package's, apart from import lines,
+    with two departures: its usage lines name the port's module, and
+    `dump_engine` decodes the engine's batched entries (P_MULTI), where
+    its source prints "?" for them (tests/test_torch_etcd_tools.py holds
+    the behaviour)."""
+    import difflib
+    rel = "tools/dump_logs.py"
+    ours = [_IMPORT_LINE.sub(r"\1etcd_tpu", ln).replace(
+        "python -m etcd_tpu_torch.tools.", "python -m etcd_tpu.tools.")
+        for ln in open(os.path.join(PKG, rel)).read().splitlines()]
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    assert sum("python -m etcd_tpu.tools.dump_logs" in ln
+               for ln in theirs) == 3
+    diff = [ln for ln in difflib.unified_diff(theirs, ours, lineterm="",
+                                              n=0)
+            if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+    assert diff == [
+        "+import struct",
+        "+    from etcd_tpu.server.engine import P_MULTI, _unpack_multi",
+        "+            elif payload[:1] == bytes([P_MULTI]):",
+        "+                # A batched entry (coalesced writes): each of its",
+        "+                # Requests, in order.",
+        "+                try:",
+        "+                    rs = [Request.decode(b) for b in "
+        "_unpack_multi(payload)]",
+        "+                    kind = f\"multi[{len(rs)}]\"",
+        "+                    body = \", \".join(f\"{r.method} {r.path}\" "
+        "for r in rs)",
+        "+                except (ValueError, struct.error):",
+        "+                    kind = \"multi<bad>\"",
+    ]
+
+
+def test_functional_tester_differs_only_by_the_members_it_spawns():
+    """tools/functional_tester.py is the JAX package's, apart from import
+    lines, and the member command it spawns: `python -m etcd_tpu_torch`,
+    the port's members, where its source spawns the JAX package's
+    (tests/test_torch_chaos.py holds the behaviour)."""
+    rel = "tools/functional_tester.py"
+    ours = open(os.path.join(PKG, rel)).read().splitlines()
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    assert len(ours) == len(theirs)
+    differ = [i for i, (a, b) in enumerate(zip(ours, theirs), 1)
+              if _IMPORT_LINE.sub(r"\1etcd_tpu", a) != b]
+    assert differ == [95]
+    assert theirs[94] == \
+        '            [sys.executable, "-m", "etcd_tpu"] + self._args(),'
+    assert ours[94] == \
+        '            [sys.executable, "-m", "etcd_tpu_torch"] + self._args(),'
+
+
 def test_ingress_import_loads_no_torch_and_no_jax():
     """The ingress tier runs in its own light process: importing it pulls
     in neither torch nor jax nor anything of the JAX package."""
@@ -219,16 +282,20 @@ def test_ingress_import_loads_no_torch_and_no_jax():
 
 
 def test_member_mode_loads_no_torch_and_no_jax():
-    """The member mode is the scalar host path: the CLI's entry and
-    everything a member runs (embed, EtcdServer, raft, WAL, snap, the
-    peer transport, the v2 and v3 APIs and the v0.4 upgrade, the last
-    three imported lazily by `embed.Etcd` and `EtcdServer`) import neither torch nor jax nor anything of the JAX
-    package, so a member creates no CUDA context."""
+    """The member and proxy modes are the scalar host path: the CLI's
+    entry and everything a member or a proxy runs (embed, EtcdServer,
+    raft, WAL, snap, the peer transport, the v2 and v3 APIs and the v0.4
+    upgrade, the last three imported lazily by `embed.Etcd` and
+    `EtcdServer`; the proxy; discovery, imported lazily by `start_etcd`),
+    and the client tools (the SDK and etcdctl) import neither torch nor
+    jax nor anything of the JAX package, so none of them creates a CUDA
+    context."""
     code = ("import sys\n"
             "import etcd_tpu_torch.__main__, etcd_tpu_torch.etcdmain.etcd\n"
             "import etcd_tpu_torch.embed, etcd_tpu_torch.etcdhttp.v3\n"
             "import etcd_tpu_torch.etcdhttp.client_security\n"
-            "import etcd_tpu_torch.migrate\n"
+            "import etcd_tpu_torch.migrate, etcd_tpu_torch.discovery\n"
+            "import etcd_tpu_torch.etcdctl.main, etcd_tpu_torch.client\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -236,7 +303,10 @@ def test_member_mode_loads_no_torch_and_no_jax():
                          check=True).stdout.split()
     for mod in ("embed", "server.server", "raft.core", "wal.wal",
                 "snap.snapshotter", "rafthttp.transport", "etcdhttp.peer",
-                "etcdhttp.v3", "storage.kvstore", "migrate.etcd4"):
+                "etcdhttp.v3", "storage.kvstore", "migrate.etcd4",
+                "proxy.reverse", "proxy.director", "discovery.discovery",
+                "discovery.srv", "etcdctl.main", "client.keys",
+                "client.members"):
         assert f"etcd_tpu_torch.{mod}" in out, mod
     assert [m for m in out if _is_forbidden(m) or m == "torch"
             or m.startswith("torch.")] == []
@@ -268,8 +338,15 @@ def test_host_engine_and_launcher_default_to_the_card():
     "cuda", and the data plane to "collective" (as in the JAX package);
     without a card the engine refuses before the data dir. A collective
     HostEngine on the CPU constructs on a one-rank gloo process group,
-    holding its own column only."""
+    holding its own column only. The card tools' entry points default to
+    "cuda" too (their command lines: test_card_tools_exit_1_without_a_card)."""
+    import inspect
     import socket
+
+    from etcd_tpu_torch.tools import latency_hops, soak
+    for fn in (latency_hops.measure, soak.soak_kernel, soak.soak_engine,
+               soak.soak_hostengine):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
     import torch.distributed as dist
     from etcd_tpu_torch import errors
@@ -326,3 +403,24 @@ def test_host_engine_and_launcher_default_to_the_card():
         assert "no CUDA device" in res.stderr
         assert "Traceback" not in res.stderr
         assert os.listdir(d) == []
+
+
+@pytest.mark.parametrize("tool", sorted(CARD_TOOLS))
+def test_card_tools_exit_1_without_a_card(tool, tmp_path):
+    """latency_hops, soak and multihost_bench run on the card unless the
+    caller asks for the CPU; without a card they exit 1 with a message
+    saying how to ask, and no traceback: none goes on on the CPU by
+    itself (tests/test_torch_etcd_tools.py runs them on the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    args, how, env = CARD_TOOLS[tool]
+    full = {k: v for k, v in os.environ.items()
+            if k not in ("PYTHONPATH", "MHB_DEVICE")}
+    full.update({k: str(tmp_path / v) for k, v in env.items()})
+    res = subprocess.run(
+        [sys.executable, "-m", f"etcd_tpu_torch.tools.{tool}", *args],
+        cwd=ROOT, env=full, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 1, res
+    assert "no CUDA device" in res.stderr and how in res.stderr
+    assert "Traceback" not in res.stderr and res.stdout == ""
+    assert os.listdir(tmp_path) == []

@@ -3,10 +3,10 @@ members over real sockets, and `python -m etcd_tpu_torch` member
 processes.
 
 1. tests/test_http.py's cases (the v2 keys matrix, watches, members,
-   stats, version, health, metrics, CORS, the cluster-version monitor),
+   stats, version, health, metrics, CORS, the cluster-version monitor,
+   a member's peer URLs updated through the port's members API),
    compiled against the port (tests/port_tests.py), so their fixtures
-   build the port's members. `test_member_update_peer_urls` drives the
-   members API through `client/`, which the port does not have yet.
+   build the port's members.
 2. Three `python -m etcd_tpu_torch` member processes from a static
    `--initial-cluster` bootstrap on localhost: a write through one member
    read back from the others (v2 and v3), `/v2/members` and
@@ -22,8 +22,6 @@ import subprocess
 import sys
 import time
 
-import pytest
-
 from port_tests import on_the_port
 
 _http = on_the_port("test_http")
@@ -33,9 +31,7 @@ test_cors_enforced = _http.test_cors_enforced
 test_cors_wildcard = _http.test_cors_wildcard
 test_version_monitor_decides_min_and_upgrades = \
     _http.test_version_monitor_decides_min_and_upgrades
-test_member_update_peer_urls = pytest.mark.skip(
-    reason="needs etcd_tpu_torch.client, which is ROADMAP A10")(
-    _http.test_member_update_peer_urls)
+test_member_update_peer_urls = _http.test_member_update_peer_urls
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORM = {"Content-Type": "application/x-www-form-urlencoded"}

@@ -2,11 +2,9 @@
 backend, the key index, the MVCC kvstore) and its v0.4 data-dir upgrade
 (etcd_tpu_torch/migrate), which every member runs at boot, under the
 tests of tests/test_storage_v3.py and tests/test_migrate.py compiled
-against the port (tests/port_tests.py). test_migrate.py's standby case
-boots a proxy, which the port does not have yet. Tolerance: exact, as
+against the port (tests/port_tests.py); test_migrate.py's standby case
+boots the port's proxy from the converted data dir. Tolerance: exact, as
 there."""
-import pytest
-
 from port_tests import on_the_port
 
 _v3 = on_the_port("test_storage_v3")
@@ -15,9 +13,6 @@ kv = _v3.kv
 globals().update({name: obj for mod in (_v3, _mig)
                   for name, obj in vars(mod).items()
                   if name.startswith(("test_", "Test"))})
-test_standby_info_conversion_boots_a_proxy = pytest.mark.skip(
-    reason="boots etcd_tpu_torch.proxy, which is ROADMAP A10")(
-    _mig.test_standby_info_conversion_boots_a_proxy)
 
 
 def test_the_storage_cases_build_the_ports_modules():
