@@ -47,9 +47,28 @@ exit) if any phase fails:
    threads, serves their GETs and 100 quorum GETs, and after a restart
    on the same data dir reads every acked write back. The kernels'
    launch counts are read across this phase (the main path). Then the
-   same again with the C host code off (the codecs' `_c_*` None and the
-   Python store): `phase_s` (record, apply), acked writes/s and ack
-   p50/p99 of both runs.
+   same again at 300 tenants (30 quorum GETs) with the C host code off
+   (the codecs' `_c_*` None and the Python store): `phase_s` (record,
+   apply), acked writes/s and ack p50/p99 of both runs.
+4a. suite_card: the engine behaviours that the JAX package's tests hold
+   on the CPU, at the bench shape on the card, in three legs, each
+   counting ring_resolve's launches across itself. race
+   (tests/test_race_stress.py): 100 threads of CAS read-modify-write
+   loops on 10 hot tenants while 1,000 tenants take their first write
+   and 8 threads touch their stores; every counter equal to its acked
+   CASes, one Store per tenant, every first write read back by quorum
+   GET; acked writes/s, ack p50/p99. compact
+   (tests/test_engine_compact.py): an engine with compact readback and
+   one with full readback under the same seeded writes and 5% link
+   drops for 40 rounds, mirrors and changed stores equal after every
+   round, every store and WAL record at the end, and the compact
+   engine's restart equal too. obs (tests/test_observability.py): an
+   engine (2 WAL and 2 applier shards) behind EngineHttp, /metrics
+   scraped while 1,000 PUTs from 100 threads run: every compartment
+   series the JAX test names, +Inf equal to _count, monotone counters,
+   the acked counter moved by the clients' acks, /debug/flight and a
+   SIGUSR2 dump Chrome-trace JSON; each compartment's p50/p99 and
+   phase_s.
 5. http_front: the same G, P and window through the CLI's engine mode
    at its other defaults (max_ents 8, so the conflict scan takes the
    generic instantiation at idx (100000, 5, 8)), in three legs: in
@@ -59,11 +78,13 @@ exit) if any phase fails:
    the ingress, the server among the card's compute apps, every
    upstream frame answered); SIGKILL of the server, the same command
    again, every acked write read back as soon as it serves (local GETs
-   need no re-elected leader), rc 0 on SIGTERM for both. One
+   need no re-elected leader), the traced request ids of acked writes
+   (ETCD_TPU_TRACE_EVERY=4) among the restarted server's `replayed`
+   spans, its launches from its stop line, rc 0 on SIGTERM for both. One
    JSON line per leg: acked writes/s, ack p50/p99, rounds/s, seconds
-   per step. Then the three legs again with the C host code off in
-   every process (ETCD_TPU_PYSTORE=1, no C codecs, the ingress's
-   `--no-native`).
+   per step. Then the three legs again at 300 tenants (30 quorum GETs)
+   with the C host code off in every process (ETCD_TPU_PYSTORE=1, no C
+   codecs, the ingress's `--no-native`).
 5a. pool_serve: `python -m etcd_tpu_torch.tools.pool_serve`, two shard
    processes of 50,000 groups each on the card (P, W, fsync on) behind
    one router: boot seconds per shard, 1,000 PUTs and 100 quorum GETs
@@ -89,7 +110,7 @@ exit) if any phase fails:
    back from the rank that acked it; SIGTERM, rc 0 and an exit line
    from every rank (device, `ring_resolve` launches by instantiation,
    both above zero for TE=5 and generic, peak device memory).
-7. mesh_round: the bench shape's round (hops=3, E=4) for 40 rounds with
+7. mesh_round: the bench shape's round (hops=3, E=4) for 16 rounds with
    random proposals and 5% drops, unsharded, on a 4 x 1 mesh (groups
    axis) and on a 1 x 5 mesh (peers axis), every cell on the one card:
    state and inbox equal to the unsharded round's after every round;
@@ -105,9 +126,13 @@ exit) if any phase fails:
    takes CUDA tensors, and the ranks move theirs through pinned host
    memory either way): boot, 1,000 forwarded PUTs, 100 quorum GETs on
    the zero-append read plane (no rank's applied index or WAL moves),
-   SIGKILL of one rank and the supervisor's whole-job restart (detect,
-   restart, total seconds), every acked write read back, SIGTERM and
-   each rank's exit line.
+   10 groups written past the ring window, SIGKILL of one rank with
+   its data dir taken away and the supervisor's whole-job restart
+   (detect, restart, total seconds; the empty rank starts from the
+   term floor the supervisor wrote it), seconds until the rebuilt rank
+   has installed a snapshot of each of those groups and serves every
+   acked write from its own store, every acked write read back from
+   all five ranks, SIGTERM and each rank's exit line.
 10. member_cluster: etcd's own deployment through the port's CLI:
    three `python -m etcd_tpu_torch` members from a static
    --initial-cluster bootstrap, at the reference's tick (heartbeat 100
@@ -137,11 +162,11 @@ exit) if any phase fails:
    server's ring_resolve launches from its stop line; `python -m
    etcd_tpu_torch.tools.dump_logs --engine` lists every write the SDK
    acked.
-12. latency_hops: `etcd_tpu_torch.tools.latency_hops` at G = 12,500,
-   32,768 and 100,000 (P=5, W=16, E=4, hops=3, full proposals; 40
+12. latency_hops: `etcd_tpu_torch.tools.latency_hops` at G = 12,500
+   and 100,000 (P=5, W=16, E=4, hops=3, full proposals; 40
    warm-up rounds, every group led; 80 timed rounds, every group's
    commit advancing): ms per round, commits/s, launches.
-13. soak_kernel: `etcd_tpu_torch.tools.soak kernel` for 5 schedules
+13. soak_kernel: `etcd_tpu_torch.tools.soak kernel` for 3 schedules
    (meta seed 0): random fault mixes of `oracle.run_equivalence` on the
    card with the CUDA `ring_resolve`, equal to the scalar Raft after
    every round; schedules per second and the starved count.
@@ -157,7 +182,6 @@ import json
 import os
 import select
 import signal
-import socket
 import subprocess
 import sys
 import tempfile
@@ -177,6 +201,21 @@ SEED = 1234
 def log(phase: str, t0: float, **kv) -> None:
     print(json.dumps({"phase": phase, "s": round(time.perf_counter() - t0, 3),
                       **kv}), flush=True)
+
+
+def _launches_reset():
+    """Zero ring_resolve's launch counts (a counted path starts)."""
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    ring_resolve.launches = 0
+    for k in ring_resolve.launches_by_variant:
+        ring_resolve.launches_by_variant[k] = 0
+
+
+def _launches_read() -> tuple:
+    """ring_resolve's launches since the reset, in all and by
+    instantiation (a counted path ends)."""
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve
+    return ring_resolve.launches, dict(ring_resolve.launches_by_variant)
 
 
 # The entry points of the port's C that the loaders bind at import.
@@ -574,9 +613,7 @@ def phase_mesh_round(dev, groups=G, rounds=40, layouts=MESH_LAYOUTS,
             ib[name] = shard_mailbox(ib[name], m)
             stats[name] = CommStats()
     secs = dict.fromkeys(st, 0.0)
-    ring_resolve.launches = 0           # this path starts here
-    for k in ring_resolve.launches_by_variant:
-        ring_resolve.launches_by_variant[k] = 0
+    _launches_reset()  # this path starts here
     by = {name: dict.fromkeys(ring_resolve.launches_by_variant, 0)
           for name in st}
     rng = np.random.RandomState(SEED)
@@ -686,9 +723,7 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
     gs = [i * groups // tenants for i in range(tenants)]
     with host_code(native), \
             tempfile.TemporaryDirectory(prefix="chip_smoke-") as d:
-        ring_resolve.launches = 0       # the main path starts here
-        for k in ring_resolve.launches_by_variant:
-            ring_resolve.launches_by_variant[k] = 0
+        _launches_reset()  # the main path starts here
         eng = MultiEngine(EngineConfig(data_dir=d, **cfg))
         boot_rounds = 0
         for _ in range(12):
@@ -791,21 +826,15 @@ def _http(method, url, body=None, headers=None, timeout=60):
 
 
 def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    return _free_ports(1)[0]
 
 
 def _free_ports(n: int) -> list:
-    """n distinct free ports (all held open until every one is bound)."""
-    socks = [socket.socket() for _ in range(n)]
-    try:
-        for s in socks:
-            s.bind(("127.0.0.1", 0))
-        return [s.getsockname()[1] for s in socks]
-    finally:
-        for s in socks:
-            s.close()
+    """n distinct free ports below the ephemeral range, so that a server
+    restarted on its port does not find it taken by an outbound
+    connection."""
+    from etcd_tpu_torch.tools.multihost_supervisor import listen_ports
+    return listen_ports(n)
 
 
 def _in_threads(fn, items, n_threads=100, timeout=300):
@@ -961,6 +990,11 @@ def _compute_apps() -> list:
     return [ln.strip() for ln in apps.strip().splitlines() if ln.strip()]
 
 
+# The CLI server's sampling of request traces in phase_http_front: about
+# 250 of its 1,000 writes, within the tracer's 512 spans.
+TRACE_EVERY = 4
+
+
 def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                      device_flags=(), native=True):
     """The tenant HTTP front and the ingress as users run them, at the
@@ -968,12 +1002,16 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
 
     1. in process, counted: EngineServer(parse_args(flags)), PUT, GET,
        quorum GET and /batch over real sockets; returns the ring_resolve
-       launches counted across this leg, in all and by instantiation;
+       launches counted across this leg, in all and by instantiation
+       (and, third, the restarted server's of leg 3, from its stop
+       line);
     2. `python -m etcd_tpu_torch` and `python -m
        etcd_tpu_torch.server.ingress` as processes; writes and a CAS
        race through the ingress; every batchframe sent was answered;
     3. SIGKILL of the server, the same command again, every write acked
-       in 2 read back; SIGTERM ends both processes with rc 0.
+       in 2 read back, and every traced acked write's request id among
+       the restarted server's `replayed` spans; SIGTERM ends both
+       processes with rc 0.
 
     With native=False the C host code is off in every process of the
     phase: this one's (`host_code`), the servers' (ETCD_TPU_PYSTORE=1 and
@@ -997,9 +1035,7 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
 
         # Leg 1: in process, the kernels' launches counted.
         steps = _Steps()
-        ring_resolve.launches = 0       # the main path starts here
-        for k in ring_resolve.launches_by_variant:
-            ring_resolve.launches_by_variant[k] = 0
+        _launches_reset()  # the main path starts here
         srv = EngineServer(parse_args(flags("inproc", 0)))
         if srv.engine.device.type != torch.device(dev).type:
             raise AssertionError(f"engine on {srv.engine.device}")
@@ -1047,15 +1083,17 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
              quorum_gets=quorum_gets, batch_statuses=[201, 412],
              launches=launches, launches_by_variant=by_variant)
 
-        # Leg 2: the CLI and the ingress, as processes.
+        # Leg 2: the CLI and the ingress, as processes; the server
+        # traces 1 request in TRACE_EVERY (its /debug/traces).
         steps = _Steps()
+        trace_env = {"ETCD_TPU_TRACE_EVERY": str(TRACE_EVERY)}
         port = _free_port()
         base = f"http://127.0.0.1:{port}"
         cmd = ["etcd_tpu_torch", *flags("cli", port)]
         srv_log = os.path.join(d, "server.log")
         try:
             apps0 = _compute_apps() if on_card else []
-            server = _spawn(cmd, srv_log, native=native)
+            server = _spawn(cmd, srv_log, native=native, env=trace_env)
             procs.append(server)
             status = _wait_status(base, groups, server)
             steps.done("boot")
@@ -1118,14 +1156,28 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
 
             # Leg 3: SIGKILL the server, run the same command again. The
             # acked writes are read back as soon as it serves: a local
-            # GET needs the replayed store, not a re-elected leader.
+            # GET needs the replayed store, not a re-elected leader. The
+            # traced request ids of the acked writes come back as
+            # `replayed` spans (tests/test_observability.py::
+            # test_trace_ids_survive_sigkill_and_replay).
             steps = _Steps()
+            traced = {s["rid"] for s in _http(
+                "GET", base + "/debug/traces")[1]["spans"]
+                if {"wal_submit", "acked"} <= set(s["stages"])}
+            if len(traced) < len(gs) // TRACE_EVERY // 2:
+                raise AssertionError(f"{len(traced)} traced acked writes")
             server.send_signal(signal.SIGKILL)
             server.wait(timeout=60)
-            server = _spawn(cmd, srv_log, native=native)
+            server = _spawn(cmd, srv_log, native=native, env=trace_env)
             procs.append(server)
             _wait_status(base, proc=server)
             steps.done("restart")
+            replayed = {s["rid"] for s in _http(
+                "GET", base + "/debug/traces")[1]["spans"]
+                if "replayed" in s["stages"]}
+            if traced - replayed:
+                raise AssertionError(f"traced acked writes not replayed: "
+                                     f"{sorted(traced - replayed)[:5]}")
             want = {g: f"i{g}" for g in gs}
             want[cas_g] = winner
             _get_all(base, want)
@@ -1139,8 +1191,18 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
             steps.done("sigterm")
             if rcs != {"ingress": 0, "server": 0}:
                 raise AssertionError(f"exit codes on SIGTERM: {rcs}")
+            with open(srv_log) as f:    # the killed server printed none
+                stops = [json.loads(ln.split(STOP_LINE, 1)[1]) for ln in f
+                         if STOP_LINE in ln]
+            if len(stops) != 1 or on_card and not sum(stops[0].values()):
+                raise AssertionError(f"restarted server's stop line: "
+                                     f"{stops}")
+            restarted = stops[0]
             log("http_front", t0, leg="sigkill_restart", native=native,
-                read_back=len(want),
+                launches_by_variant=restarted,
+                read_back=len(want), trace_every=TRACE_EVERY,
+                traced_acked_writes=len(traced),
+                replayed_spans=len(replayed),
                 groups_with_leader_after_read_back=leaders, rcs=rcs,
                 step_s={k: round(v, 3) for k, v in steps.items()})
         except BaseException:
@@ -1153,7 +1215,468 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                 if p.poll() is None:
                     p.kill()
                     p.wait(timeout=60)
+    return launches, by_variant, restarted
+
+
+# -- suite_card: the JAX package's behavioural suite at full width -----------
+
+def _bench_engine(dev, d, groups, **kw):
+    """A MultiEngine at the bench shape (fsync on) on `dev`, every group
+    led: run_round until then, at most 12 rounds."""
+    from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
+    eng = MultiEngine(EngineConfig(
+        data_dir=d, groups=groups, peers=P, window=W, max_ents=E,
+        heartbeat_tick=3, fsync=True, stagger=True, hops=3,
+        device=str(dev), **kw))
+    for _ in range(12):
+        eng.run_round()
+        if (np.where(eng.h_mask, eng.h_state, 0) == 2).any(1).all():
+            return eng
+    raise AssertionError("engine elections did not converge")
+
+
+def _suite_race(dev, groups, hot=10, cas_threads=100, cas_attempts=8,
+                first_writes=1000):
+    """tests/test_race_stress.py's engine tests at full width, on the
+    live engine thread: `cas_threads` threads doing read-modify-write
+    CAS loops on `hot` hot tenants' counters while `first_writes`
+    tenants with no store yet take their first write and 8 threads
+    touch those tenants' stores (the lazy creation race). Each counter
+    must equal its count of acked CASes, one Store instance must have
+    existed per tenant, and every acked first write must read back with
+    a quorum GET."""
+    from etcd_tpu_torch import errors
+    from etcd_tpu_torch.server.request import Request
+    t0 = time.perf_counter()
+    hot_gs = [i * groups // hot for i in range(hot)]
+    first_gs = [i * groups // first_writes + 1 for i in range(first_writes)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-race-") as d:
+        _launches_reset()
+        eng = _bench_engine(dev, d, groups, request_timeout=60.0)
+        eng.start()
+        try:
+            for g in hot_gs:
+                eng.do(g, Request(method="PUT", path="/ctr", val="0"),
+                       timeout=60)
+            fresh = [g for g in first_gs if g not in eng._stores]
+            if len(fresh) != first_writes:
+                raise AssertionError("first-write tenants already had a "
+                                     "store")
+            wins = {g: 0 for g in hot_gs}
+            lat, errs, lock = [], [], threading.Lock()
+            stores_seen = {g: set() for g in first_gs}
+
+            def cas(t):
+                g = hot_gs[t % hot]
+                for _ in range(cas_attempts):
+                    n = int(eng.do(g, Request(method="GET", path="/ctr")
+                                   ).node.value)
+                    t1 = time.perf_counter()
+                    try:
+                        eng.do(g, Request(method="PUT", path="/ctr",
+                                          val=str(n + 1),
+                                          prev_value=str(n)), timeout=60)
+                    except errors.EtcdError as e:
+                        if e.code != errors.ECODE_TEST_FAILED:
+                            raise
+                        continue
+                    with lock:
+                        wins[g] += 1
+                        lat.append(time.perf_counter() - t1)
+
+            def first(g):
+                t1 = time.perf_counter()
+                ev = eng.do(g, Request(method="PUT", path="/lazy",
+                                       val=f"x{g}"), timeout=60)
+                if ev.node.value != f"x{g}":
+                    raise AssertionError(f"first write g={g}: {ev}")
+                with lock:
+                    lat.append(time.perf_counter() - t1)
+
+            def touch(_):
+                for g in first_gs:
+                    s = eng.store(g)
+                    with lock:
+                        stores_seen[g].add(id(s))
+
+            def guarded(fn, items):
+                for x in items:
+                    try:
+                        fn(x)
+                    except Exception as e:  # noqa: BLE001 — below
+                        with lock:
+                            errs.append((fn.__name__, x, repr(e)))
+
+            work = ([threading.Thread(target=guarded, args=(cas, [t]))
+                     for t in range(cas_threads)]
+                    + [threading.Thread(target=guarded,
+                                        args=(first, first_gs[i::100]))
+                       for i in range(100)]
+                    + [threading.Thread(target=guarded, args=(touch, [i]))
+                       for i in range(8)])
+            r0, t1 = eng.round_no, time.perf_counter()
+            for th in work:
+                th.start()
+            for th in work:
+                th.join(timeout=300)
+            write_s = time.perf_counter() - t1
+            rounds = eng.round_no - r0
+            if any(th.is_alive() for th in work) or errs:
+                raise AssertionError(f"race workers failed: {errs[:5]}")
+            raced = [g for g, ids in stores_seen.items() if len(ids) != 1]
+            if raced:
+                raise AssertionError(f"store created twice: {raced[:5]}")
+            counters = {g: int(eng.do(g, Request(
+                method="GET", path="/ctr", quorum=True), timeout=60
+                ).node.value) for g in hot_gs}
+            if counters != wins:
+                raise AssertionError(f"lost updates: counters {counters}, "
+                                     f"acked CASes {wins}")
+            missing = []
+
+            def qget(g):
+                ev = eng.do(g, Request(method="GET", path="/lazy",
+                                       quorum=True), timeout=60)
+                if ev.node.value != f"x{g}":
+                    missing.append(g)
+
+            errs = _in_threads(qget, first_gs)
+            if errs or missing:
+                raise AssertionError(f"first writes not read back: "
+                                     f"{(errs + missing)[:5]}")
+        finally:
+            eng.stop()
+        if eng.failed is not None:
+            raise eng.failed
+        launches, by_variant = _launches_read()
+    ms = np.array(sorted(lat)) * 1e3
+    log("suite_card", t0, leg="race", hot_tenants=hot,
+        cas_threads=cas_threads, cas_attempts=cas_threads * cas_attempts,
+        acked_cas=sum(wins.values()), counters=list(counters.values()),
+        first_writes=first_writes, read_back=len(first_gs),
+        acked=len(lat), write_s=write_s,
+        acked_writes_per_s=len(lat) / write_s,
+        ack_p50_ms=float(np.percentile(ms, 50)),
+        ack_p99_ms=float(np.percentile(ms, 99)), rounds=rounds,
+        launches=launches, launches_by_variant=by_variant)
     return launches, by_variant
+
+
+class _Seq:
+    """Sequential request ids: two engines given the same requests then
+    write the same payload bytes (idutil's ids embed the clock)."""
+
+    def __init__(self):
+        self.i = 0
+
+    def next(self):
+        self.i += 1
+        return self.i
+
+
+MIRRORS = ("h_term", "h_vote", "h_commit", "h_state", "h_last", "h_ring",
+           "h_mask", "applied")
+RECORD_ARRAYS = ("hs_g", "hs_p", "hs_term", "hs_vote", "hs_commit",
+                 "last_g", "last_p", "last_v", "ring_g", "ring_p", "ring_i",
+                 "ring_t")
+
+
+def _wal_records(d) -> list:
+    from etcd_tpu_torch.server.enginewal import EngineWAL
+    wal = EngineWAL(d, fsync=False)
+    try:
+        return list(wal.replay(after_round=-1))
+    finally:
+        wal.close()
+
+
+def _suite_compact(dev, groups, rounds=40, writes_per_round=200):
+    """tests/test_engine_compact.py at full width: an engine with
+    compact readback (`gather_rows` of the flagged rows) and one with
+    full readback take the same seeded writes and the same seeded 5%
+    link drops for `rounds` rounds; after every round their mirrors,
+    round numbers, acked counts and the stores of every group whose
+    applied index moved are equal, and at the end every store and every
+    WAL record, field by field. The compact engine's data dir then
+    restarts into the same mirrors and stores."""
+    import torch
+    from etcd_tpu_torch.server.request import Request
+    t0 = time.perf_counter()
+    quiet = dict(sync_interval=0.0, checkpoint_rounds=1 << 30,
+                 pipeline_applies=False)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-compact-") as d:
+        dirs = {k: os.path.join(d, k) for k in ("full", "compact")}
+        _launches_reset()
+        engs = {k: _bench_engine(dev, dirs[k], groups,
+                                 compact_readback=k == "compact", **quiet)
+                for k in dirs}
+        for eng in engs.values():
+            eng.reqid = _Seq()
+        full, comp = engs["full"], engs["compact"]
+        rng = np.random.RandomState(SEED)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        secs = dict.fromkeys(engs, 0.0)
+        stores_checked = 0
+        for r in range(rounds):
+            for g in rng.randint(0, groups, writes_per_round).tolist():
+                path = f"/k{rng.randint(4)}"
+                for eng in engs.values():
+                    rid = eng.reqid.next()
+                    rq = Request(method="PUT", path=path, val=f"v{r}",
+                                 id=rid)
+                    with eng._lock:
+                        eng._pending[g].append(
+                            (rid, bytes([0]) + rq.encode(), rq))
+                        eng._dirty.add(g)
+            drop = (torch.rand((groups, P, P, 1), generator=gen, device=dev)
+                    >= 0.05).to(torch.int32)
+            before = full.applied.copy()
+            for k, eng in engs.items():
+                eng.drop_mask = drop
+                t1 = time.perf_counter()
+                eng.run_round()
+                secs[k] += time.perf_counter() - t1
+            for name in MIRRORS:
+                if not np.array_equal(getattr(full, name),
+                                      getattr(comp, name)):
+                    raise AssertionError(f"compact != full: {name} after "
+                                         f"round {r}")
+            if (full.round_no, full.acked_requests) != \
+                    (comp.round_no, comp.acked_requests):
+                raise AssertionError(f"compact != full: round/acks at {r}")
+            for g in np.flatnonzero(full.applied != before).tolist():
+                if full._stores.get(g) is None:
+                    continue
+                stores_checked += 1
+                if full._stores[g].save() != comp._stores[g].save():
+                    raise AssertionError(f"compact != full: store {g} "
+                                         f"after round {r}")
+        if set(full._stores) != set(comp._stores) or any(
+                full._stores[g].save() != comp._stores[g].save()
+                for g in full._stores):
+            raise AssertionError("compact != full: the stores")
+        # A restart replays every slot as a follower: h_state is not
+        # compared, as in the JAX test.
+        mirrors = {n: getattr(comp, n).copy()
+                   for n in ("h_term", "h_vote", "h_commit", "h_last",
+                             "h_ring")}
+        stores = {g: s.save() for g, s in comp._stores.items()}
+        committed = int(full.applied.sum())
+        for eng in engs.values():
+            eng.stop()
+            if eng.failed is not None:
+                raise eng.failed
+        launches, by_variant = _launches_read()
+        recs = {k: _wal_records(v) for k, v in dirs.items()}
+        if len(recs["full"]) != len(recs["compact"]):
+            raise AssertionError("compact != full: WAL record counts")
+        for ra, rb in zip(recs["full"], recs["compact"]):
+            if ra.round_no != rb.round_no or ra.entries != rb.entries \
+                    or ra.confs != rb.confs or any(
+                        not np.array_equal(np.asarray(getattr(ra, f)),
+                                           np.asarray(getattr(rb, f)))
+                        for f in RECORD_ARRAYS):
+                raise AssertionError(f"compact != full: WAL record of "
+                                     f"round {ra.round_no}")
+        t1 = time.perf_counter()
+        from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
+        re = MultiEngine(EngineConfig(
+            data_dir=dirs["compact"], groups=groups, peers=P, window=W,
+            max_ents=E, heartbeat_tick=3, fsync=True, stagger=True, hops=3,
+            device=str(dev), **quiet))
+        try:
+            bad = [n for n, v in mirrors.items()
+                   if not np.array_equal(getattr(re, n), v)]
+            bad += [g for g, blob in stores.items()
+                    if re._stores[g].save() != blob]
+        finally:
+            re.stop()
+        if bad:
+            raise AssertionError(f"compact restart differs: {bad[:5]}")
+        restart_s = time.perf_counter() - t1
+    log("suite_card", t0, leg="compact", rounds=rounds,
+        writes_per_round=writes_per_round, drop_rate=0.05,
+        ms_per_round={k: v / rounds * 1e3 for k, v in secs.items()},
+        stores_compared_by_round=stores_checked, stores=len(stores),
+        wal_records=len(recs["full"]), applied_entries=committed,
+        restart_s=restart_s, launches=launches,
+        launches_by_variant=by_variant)
+    return launches, by_variant
+
+
+OBS_SERIES = (    # the families tests/test_observability.py names
+    "etcd_engine_round_phase_seconds_bucket",
+    "etcd_engine_kernel_step_seconds_bucket",
+    "etcd_engine_round_batch_requests_bucket",
+    "etcd_wal_writer_queue_depth", "etcd_wal_writer_watermark_lag_tickets",
+    "etcd_wal_writer_group_commit_rounds_bucket",
+    "etcd_applier_apply_batch_requests_bucket",
+    "etcd_ack_gate_wait_seconds_bucket",
+    "etcd_server_proposal_durations_milliseconds_count",
+    "etcd_server_pending_proposal_total")
+OBS_PHASES = {"stage", "dispatch", "readback", "record", "wal_submit",
+              "tail"}
+OBS_MONOTONE = ("etcd_engine_rounds_total",
+                "etcd_engine_acked_requests_total",
+                "etcd_server_proposal_durations_milliseconds_count")
+
+
+def _chrome_stages(doc) -> set:
+    """The instant-event names of a Chrome trace-event document."""
+    return {e["name"] for e in doc["traceEvents"] if e["ph"] == "i"}
+
+
+def _suite_obs(dev, groups, tenants=1000):
+    """tests/test_observability.py's engine tests at full width: an
+    engine (2 WAL shards, 2 applier shards) behind EngineHttp, /metrics
+    scraped every 0.4 s while `tenants` PUTs from 100 threads run. Every
+    scrape parses; every compartment series the JAX test names is
+    present (round phases, kernel step, WAL fsync per shard, applier
+    queues, ack gate, the reference's proposal metrics); +Inf equals
+    _count; the counters never move back; the acked counter moves by
+    exactly the acks the clients saw; /debug/flight and a SIGUSR2 dump
+    parse as Chrome-trace JSON with all six stages. Logs each
+    compartment's p50/p99 over the writes, with the engine's phase_s."""
+    from etcd_tpu_torch.etcdhttp.tenants import EngineHttp
+    from etcd_tpu_torch.server import obs as obs_mod
+    from etcd_tpu_torch.tools import etcd_top
+    t0 = time.perf_counter()
+    gs = [i * groups // tenants for i in range(tenants)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-obs-") as d:
+        _launches_reset()
+        eng = _bench_engine(dev, d, groups, applier_shards=2, wal_shards=2,
+                            request_timeout=60.0,
+                            checkpoint_rounds=1 << 30)
+        front = EngineHttp(eng, port=0)
+        eng.start()
+        front.start()
+        base = front.url.rstrip("/")
+
+        def scrape():
+            with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+                return etcd_top.parse_metrics(r.read().decode())
+
+        try:
+            first = scrape()
+            scrapes, done = [first], threading.Event()
+
+            def scraper():
+                while not done.wait(0.4):
+                    scrapes.append(scrape())
+
+            sc = threading.Thread(target=scraper)
+            sc.start()
+            t1 = time.perf_counter()
+            try:
+                lat = _put_all(base, gs, lambda g: f"o{g}")
+            finally:
+                done.set()
+                sc.join(timeout=120)
+            write_s = time.perf_counter() - t1
+            last = scrape()
+            scrapes.append(last)
+            names = {k[0] for k in last}
+            missing = [n for n in OBS_SERIES if n not in names]
+            phases = {dict(k[1]).get("phase") for k in last
+                      if k[0] == "etcd_engine_round_phase_seconds_bucket"}
+            shards = {fam: {dict(k[1]).get("shard") for k in last
+                            if k[0] == fam}
+                      for fam in ("etcd_wal_writer_fsync_seconds_bucket",
+                                  "etcd_applier_queue_depth")}
+            if missing or not OBS_PHASES <= phases or any(
+                    not {"0", "1"} <= s for s in shards.values()):
+                raise AssertionError(f"/metrics lacks {missing}, phases "
+                                     f"{phases}, shards {shards}")
+            for fam in ("etcd_engine_kernel_step_seconds",
+                        "etcd_ack_gate_wait_seconds"):
+                inf = sum(v for k, v in last.items()
+                          if k[0] == fam + "_bucket"
+                          and dict(k[1]).get("le") == "+Inf")
+                if inf != last[(fam + "_count", ())]:
+                    raise AssertionError(f"{fam}: +Inf {inf} != _count")
+            for a, b in zip(scrapes, scrapes[1:]):
+                for key in OBS_MONOTONE:
+                    if b[(key, ())] < a[(key, ())]:
+                        raise AssertionError(f"{key} moved back")
+            acked = (last[("etcd_engine_acked_requests_total", ())]
+                     - first[("etcd_engine_acked_requests_total", ())])
+            if acked != len(lat):
+                raise AssertionError(f"acked counter moved {acked}, the "
+                                     f"clients saw {len(lat)} acks")
+            st, flight = _http("GET", base + "/debug/flight")
+            if st != 200 or _chrome_stages(flight) != set(
+                    obs_mod.STAGE_NAMES):
+                raise AssertionError(f"/debug/flight: {st}")
+            diag = os.path.join(d, "diagnostics")
+            os.kill(os.getpid(), signal.SIGUSR2)
+            t_end, dumps = time.monotonic() + 15, []
+            while not dumps and time.monotonic() < t_end:
+                time.sleep(0.1)
+                dumps = [f for f in (os.listdir(diag) if os.path.isdir(diag)
+                                     else []) if "sigusr2" in f]
+            if not dumps:
+                raise AssertionError("SIGUSR2 produced no flight dump")
+            with open(os.path.join(diag, dumps[0])) as f:
+                if _chrome_stages(json.load(f)) != set(obs_mod.STAGE_NAMES):
+                    raise AssertionError("SIGUSR2 dump lacks stages")
+        finally:
+            front.stop()
+            eng.stop()
+        if eng.failed is not None:
+            raise eng.failed
+        launches, by_variant = _launches_read()
+
+    def pct(name, match=()):
+        buckets, total, _ = etcd_top.hist_delta(first, last, name, match)
+        return {"p50": etcd_top.quantile(buckets, total, 0.5),
+                "p99": etcd_top.quantile(buckets, total, 0.99),
+                "count": total}
+
+    compartments = {
+        **{f"round_phase_s[{p}]": pct("etcd_engine_round_phase_seconds",
+                                      (("phase", p),))
+           for p in sorted(phases - {None})},
+        "kernel_step_s": pct("etcd_engine_kernel_step_seconds"),
+        "round_batch_requests": pct("etcd_engine_round_batch_requests"),
+        **{f"wal_fsync_s[{s}]": pct("etcd_wal_writer_fsync_seconds",
+                                    (("shard", s),)) for s in ("0", "1")},
+        "wal_group_commit_rounds": pct(
+            "etcd_wal_writer_group_commit_rounds"),
+        "applier_batch_requests": pct(
+            "etcd_applier_apply_batch_requests"),
+        "ack_gate_wait_s": pct("etcd_ack_gate_wait_seconds")}
+    log("suite_card", t0, leg="obs_compartments", bucket_bounds=True,
+        compartments=compartments,
+        phase_s={k: round(v, 4) for k, v in eng.phase_s.items()})
+    ms = np.array(sorted(lat.values())) * 1e3
+    log("suite_card", t0, leg="obs", acked=len(lat), write_s=write_s,
+        acked_writes_per_s=len(lat) / write_s,
+        ack_p50_ms=float(np.percentile(ms, 50)),
+        ack_p99_ms=float(np.percentile(ms, 99)), scrapes=len(scrapes),
+        acked_counter_moved=acked, series=len(OBS_SERIES),
+        flight_stages=len(obs_mod.STAGE_NAMES), sigusr2_dump=dumps[0],
+        launches=launches, launches_by_variant=by_variant)
+    return launches, by_variant
+
+
+def phase_suite_card(dev, groups=G, race=None, compact=None, obs=None):
+    """The engine's behaviours that the JAX package's tests hold on the
+    CPU (tests/test_race_stress.py, test_engine_compact.py,
+    test_observability.py), at the bench shape on the card, where the
+    rounds are faster and the interleavings differ. Three legs; each
+    counts ring_resolve's launches across itself. Keyword dicts pass
+    sizes to the legs (the CPU rehearsal's). Returns {leg: (launches,
+    by instantiation)}."""
+    import torch
+    out = {"race": _suite_race(dev, groups, **(race or {})),
+           "compact": _suite_compact(dev, groups, **(compact or {})),
+           "obs": _suite_obs(dev, groups, **(obs or {}))}
+    if torch.device(dev).type == "cuda" and not all(
+            n > 0 for n, _ in out.values()):
+        raise AssertionError(f"suite_card: ring_resolve not launched on "
+                             f"every leg: {out}")
+    return out
 
 
 POOL_SHARDS = 2      # engine processes of phase_pool_serve on the card
@@ -1624,7 +2147,8 @@ def _read_status(path) -> dict:
 
 
 def phase_multihost_collective(dev, groups=G, tenants=1000, quorum_gets=100,
-                               hosts=NHOSTS, device_env=None, backend="gloo"):
+                               hosts=NHOSTS, device_env=None, backend="gloo",
+                               deep_groups=10):
     """The multi-host engine on the collective data plane as users run
     it: `python -m etcd_tpu_torch.tools.multihost_supervisor` spawning
     `hosts` rank processes of the launcher on the one card, the ranks
@@ -1642,10 +2166,15 @@ def phase_multihost_collective(dev, groups=G, tenants=1000, quorum_gets=100,
     3. `quorum_gets` quorum GETs, each at its group's leader rank (the
        zero-append read plane): every rank's applied index and WAL
        unchanged by them, every one counted by the read plane;
-    4. SIGKILL of one rank: the supervisor's detect, restart and total
-       seconds (whole-job restart, a new process group, each rank
-       replaying its own WAL);
-    5. every acked write read back from the rank that acked it;
+    4. disk loss: `deep_groups` groups written past the ring window,
+       then SIGKILL of one rank and its data dir taken away; the
+       supervisor's detect, restart and total seconds (whole-job
+       restart, a new process group, each survivor replaying its own
+       WAL, the empty rank starting from the term floor the supervisor
+       wrote it);
+    5. seconds until the rebuilt rank has installed a snapshot of every
+       deep group and serves every acked write from its own store; then
+       every acked write read back from every rank;
     6. SIGTERM of every rank: each rank's exit line (rounds,
        ring_resolve launches by instantiation, peak device memory, comm
        calls and seconds, no failure).
@@ -1796,9 +2325,36 @@ def phase_multihost_collective(dev, groups=G, tenants=1000, quorum_gets=100,
                 read_plane_served=read_plane, applied_by_rank=after,
                 wal_bytes_grown_by_rank=[b - a for a, b in zip(wal0, wal)])
 
-            # 4. SIGKILL of one rank; the supervisor restarts the job.
+            # 4. Disk loss: `deep_groups` groups' logs pushed past the
+            # ring window (W + 6 writes each, so only a snapshot can
+            # bridge them to an empty rank), then SIGKILL of one rank and
+            # its data dir taken away before the supervisor restarts the
+            # job (tests/test_multihost_snapshot.py::
+            # test_host_loss_with_disk_loss_recovers_via_snapshots). The
+            # supervisor writes the empty dir a term floor from the
+            # survivors' WALs (`load_terms`).
+            deep_gs = gs[quorum_gets:quorum_gets + deep_groups]
+
+            def push(g):
+                r = client[g]
+                for i in range(W + 6):
+                    st_, body = _http(
+                        "PUT", f"{bases[r]}/tenants/{g}/v2/keys/k{i}",
+                        f"value=d{g}.{i}".encode(), FORM)
+                    if st_ not in (200, 201):
+                        raise AssertionError(f"PUT g={g} k{i}: {st_} {body}")
+                    deep[(g, f"k{i}")] = f"d{g}.{i}"
+
+            deep: dict = {}
+            t1 = time.perf_counter()
+            errs = _in_threads(push, deep_gs, n_threads=len(deep_gs))
+            if errs:
+                raise AssertionError(f"deep writes failed: {errs[:5]}")
+            deep_s = time.perf_counter() - t1
             t_kill = time.perf_counter()
             os.kill(pids[victim], signal.SIGKILL)
+            lost = os.path.join(d, f"host{victim}")
+            os.rename(lost, lost + ".lost")
             wait_sup(lambda s: s.get("state") == "recovering", "detection",
                      deadline_s=120)
             detect_s = time.perf_counter() - t_kill
@@ -1809,31 +2365,63 @@ def phase_multihost_collective(dev, groups=G, tenants=1000, quorum_gets=100,
             if not rec["ok"]:
                 raise AssertionError(f"recovery failed: {rec}")
             pids = list(st["pids"].values())
+            if not os.path.exists(os.path.join(lost, "term_floor.json")):
+                raise AssertionError("no term floor in the lost rank's dir")
             for b in bases:
                 _wait_status(b, groups, deadline_s=600)
             led_s = time.perf_counter() - t_kill
             if sup.wait(timeout=60) != 0:
                 raise AssertionError(f"supervisor rc={sup.returncode}")
-            log("multihost_collective", t0, step="sigkill", victim=victim,
+            log("multihost_collective", t0, step="sigkill_disk_loss",
+                victim=victim, deep_groups=len(deep_gs),
+                deep_writes=len(deep), deep_write_s=deep_s,
                 detect_s=detect_s, cause=rec["cause"],
                 kill_job_s=rec["detect_to_killed_s"],
                 restart_s=rec["restart_s"], total_s=rec["total_s"],
                 every_group_led_s=led_s, generation=st["generation"])
 
-            # 5. every acked write from the rank that acked it.
-            def get(item):
-                g, (val, r) = item
-                st_, body = _http("GET", f"{bases[r]}/tenants/{g}/v2/keys/"
-                                  f"smoke")
-                if st_ != 200 or body["node"]["value"] != val:
-                    raise AssertionError(f"GET g={g} at {r}: {st_} {body}")
+            # 5. every acked write, from all five ranks: the rebuilt
+            # rank's own store serves them once it has caught up through
+            # snapshot installs and appends (a plain GET is local).
+            writes = {(g, "smoke"): val for g, (val, _) in acked.items()}
+            writes.update(deep)
 
+            def read_all(ranks):
+                def get(item):
+                    r, (g, key) = item
+                    st_, body = _http("GET", f"{bases[r]}/tenants/{g}/v2/"
+                                      f"keys/{key}")
+                    if st_ != 200 or body["node"]["value"] != writes[
+                            (g, key)]:
+                        raise AssertionError(f"GET g={g} {key} at {r}: "
+                                             f"{st_} {body}")
+                return _in_threads(get, [(r, k) for r in ranks
+                                         for k in writes])
+
+            t_end = time.monotonic() + 300
+            while True:
+                stv = _http("GET", bases[victim] + "/engine/status")[1]
+                errs = (read_all([victim]) if stv.get("snaps_installed", 0)
+                        >= len(deep_gs) else ["no snapshot yet"])
+                if not errs:
+                    break
+                if time.monotonic() > t_end:
+                    raise AssertionError(f"the rebuilt rank never caught "
+                                         f"up: {stv} {errs[:5]}")
+                time.sleep(1.0)
+            caught_up_s = time.perf_counter() - t_kill
             t1 = time.perf_counter()
-            errs = _in_threads(get, list(acked.items()))
+            errs = read_all(range(hosts))
             if errs:
                 raise AssertionError(f"acked writes lost: {errs[:5]}")
             log("multihost_collective", t0, step="read_back",
-                read_back=len(acked), seconds=time.perf_counter() - t1)
+                read_back=len(writes), ranks=hosts,
+                seconds=time.perf_counter() - t1,
+                caught_up_s_after_kill=caught_up_s,
+                caught_up_s_after_every_group_led=caught_up_s - led_s,
+                victim_snaps_installed=stv["snaps_installed"],
+                snaps_sent_by_rank=[_http("GET", b + "/engine/status")[1]
+                                    ["snaps_sent"] for b in bases])
 
             # 6. SIGTERM: an exit line from every rank, no failure.
             gen = st["generation"]
@@ -2657,9 +3245,7 @@ def phase_latency_hops(dev, groups=LATENCY_GROUPS):
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     from etcd_tpu_torch.tools.latency_hops import measure
     t0 = time.perf_counter()
-    ring_resolve.launches = 0            # this path starts here
-    for k in ring_resolve.launches_by_variant:
-        ring_resolve.launches_by_variant[k] = 0
+    _launches_reset()  # this path starts here
     for g in groups:
         log("latency_hops", t0, **measure(g, device=dev))
     by = dict(ring_resolve.launches_by_variant)
@@ -2677,9 +3263,7 @@ def phase_soak_kernel(dev, schedules=5, meta_seed=0):
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     from etcd_tpu_torch.tools.soak import soak_kernel
     t0 = time.perf_counter()
-    ring_resolve.launches = 0            # this path starts here
-    for k in ring_resolve.launches_by_variant:
-        ring_resolve.launches_by_variant[k] = 0
+    _launches_reset()  # this path starts here
     out = soak_kernel(schedules, meta_seed=meta_seed, device=dev)
     by = dict(ring_resolve.launches_by_variant)
     if torch.device(dev).type == "cuda" and not ring_resolve.launches:
@@ -2755,22 +3339,28 @@ def main() -> int:
     if not (by_variant["te4"] and by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the main path: {by_variant}")
+    # The depths cut to hold the whole script near 600 s with phase
+    # suite_card and the collective disk-loss leg (PERF.md §4): the C-off
+    # runs at 300 tenants, mesh_round at 16 rounds, latency_hops at two
+    # sizes, 3 soak schedules.
     off_launches, off_by_variant = phase_engine(
-        dev, name="engine_native_off", native=False)
-    http_launches, http_by_variant = phase_http_front(dev)
+        dev, name="engine_native_off", native=False, tenants=300,
+        quorum_gets=30)
+    suite = phase_suite_card(dev)
+    http_launches, http_by_variant, http_restart = phase_http_front(dev)
     if not (http_by_variant["te5"] and http_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
                              f"{http_by_variant}")
-    http_off_launches, http_off_by_variant = phase_http_front(
-        dev, native=False)
+    http_off_launches, http_off_by_variant, http_off_restart = \
+        phase_http_front(dev, native=False, tenants=300, quorum_gets=30)
     pool_stops = phase_pool_serve(dev)
     phase_tsan()
     # 500 tenants, not 1,000: the load of this phase is what is cut to
     # keep the whole script near 400 s with the phases after it.
     mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(
         dev, tenants=500)
-    mesh_by_layout = phase_mesh_round(dev)
+    mesh_by_layout = phase_mesh_round(dev, rounds=16)
     from etcd_tpu_torch.parallel.mesh import make_mesh
     em_launches, em_by_variant = phase_engine(
         dev, mesh=make_mesh([dev] * 4, peers_axis=1), name="engine_mesh")
@@ -2781,8 +3371,9 @@ def main() -> int:
     mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(dev)
     phase_member_cluster(dev)
     tools_launches, tools_by_variant = phase_tools_engine(dev)
-    hops_launches, hops_by_variant = phase_latency_hops(dev)
-    soak_launches, soak_by_variant = phase_soak_kernel(dev)
+    hops_launches, hops_by_variant = phase_latency_hops(
+        dev, groups=(12_500, G))
+    soak_launches, soak_by_variant = phase_soak_kernel(dev, schedules=3)
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
@@ -2793,6 +3384,14 @@ def main() -> int:
                        "by_variant": http_by_variant},
         "http_front_native_off": {"launches": http_off_launches,
                                   "by_variant": http_off_by_variant},
+        "http_front_sigkill_restart": {
+            "launches": sum(http_restart.values()),
+            "by_variant": http_restart},
+        "http_front_native_off_sigkill_restart": {
+            "launches": sum(http_off_restart.values()),
+            "by_variant": http_off_restart},
+        **{f"suite_card_{leg}": {"launches": n, "by_variant": by}
+           for leg, (n, by) in suite.items()},
         "pool_serve": {"launches": sum(sum(s.values()) for s in pool_stops),
                        "by_shard": pool_stops},
         "multihost_frames": {

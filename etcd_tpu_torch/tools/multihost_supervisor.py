@@ -30,6 +30,7 @@ MHE_DEVICE among them).
 """
 import json
 import os
+import random
 import signal
 import socket
 import subprocess
@@ -43,12 +44,33 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(
 RANK_MODULE = "etcd_tpu_torch.tools.multihost_engine"
 
 
-def free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    p = s.getsockname()[1]
-    s.close()
-    return p
+def listen_ports(n: int) -> list:
+    """n distinct ports free to listen on, below the kernel's ephemeral
+    range. A rank keeps its ports across respawns; a port from the
+    ephemeral range can meanwhile become the local end of some outbound
+    connection, and the respawned rank then fails to bind it."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    span = range(1024, low)
+    socks = []
+    try:
+        for p in random.sample(span, len(span)):
+            s = socket.socket()
+            try:
+                s.bind(("127.0.0.1", p))
+            except OSError:
+                s.close()
+                continue
+            socks.append(s)
+            if len(socks) == n:
+                return [s.getsockname()[1] for s in socks]
+        raise OSError(f"fewer than {n} free ports")
+    finally:
+        for s in socks:
+            s.close()
 
 
 def get_status(port: int, timeout: float = 2.0):
@@ -70,8 +92,8 @@ class Supervisor:
         self.status_path = status_path
         self.stall_s = stall_s
         self.poll_s = poll_s
-        self.http_ports = [free_port() for _ in range(n)]
-        self.frame_ports = [free_port() for _ in range(n)]
+        ports = listen_ports(2 * n)
+        self.http_ports, self.frame_ports = ports[:n], ports[n:]
         self.procs: list = []
         self.generation = 0
         self.recoveries: list = []
@@ -139,7 +161,7 @@ class Supervisor:
 
     def spawn(self) -> None:
         self.prepare_dirs()
-        coord = f"127.0.0.1:{free_port()}"
+        coord = f"127.0.0.1:{listen_ports(1)[0]}"
         self.generation += 1
         self.procs = []
         self._logfs = []

@@ -424,3 +424,60 @@ def test_card_tools_exit_1_without_a_card(tool, tmp_path):
     assert "no CUDA device" in res.stderr and how in res.stderr
     assert "Traceback" not in res.stderr and res.stdout == ""
     assert os.listdir(tmp_path) == []
+
+
+def test_the_cpu_binding_of_reruns_leaves_the_defaults_on_the_card(
+        tmp_path):
+    """tests/port_tests.py's `on_the_port(name, cpu=True)`: a rerun
+    module's engines run on the CPU, from an import at its top and from
+    one inside a function (test_observability.py's eng_http fixture
+    imports EngineConfig so); the port's own classes still default
+    to "cuda", and the environment gets no device variable. The rename
+    reaches indented import lines and only import lines."""
+    import dataclasses
+
+    import port_tests
+    from etcd_tpu_torch.server import engine, hostengine
+    src = ("import etcd_tpu.server\n"
+           "def f():\n"
+           "    from etcd_tpu.server.engine import EngineConfig\n"
+           "    import etcd_tpu.errors\n"
+           "s = 'etcd_tpu.native.storecore'\n")
+    out = port_tests._IMPORT_LINE.sub(r"\1etcd_tpu_torch", src)
+    assert out == src.replace("import etcd_tpu.", "import etcd_tpu_torch.") \
+        .replace("from etcd_tpu.", "from etcd_tpu_torch.")
+    assert "'etcd_tpu.native.storecore'" in out
+
+    env0 = dict(os.environ)
+    obs = port_tests.on_the_port("test_observability", cpu=True)
+    eng = port_tests.on_the_port("test_engine", cpu=True)
+    cfg = eng.make_cfg(tmp_path / "e")
+    assert cfg.device == "cpu" and isinstance(cfg, engine.EngineConfig)
+    assert dataclasses.replace(cfg, groups=2).device == "cpu"
+    ns = {"__builtins__": obs.__builtins__}
+    exec("def fixture():\n"
+         "    from etcd_tpu_torch.server.engine import EngineConfig\n"
+         "    from etcd_tpu_torch.server.hostengine import "
+         "HostEngineConfig\n"
+         "    return EngineConfig, HostEngineConfig\n", ns)
+    E, H = ns["fixture"]()
+    assert E(groups=2, peers=3, data_dir="d").device == "cpu"
+    listen = ("127.0.0.1", 0)
+    assert H(groups=2, peers=3, data_dir="d", host_id=0,
+             frame_listen=listen).device == "cpu"
+    m = eng.MultiEngine(cfg)
+    try:
+        assert m.device.type == "cpu" and m.st.term.device.type == "cpu"
+    finally:
+        m.stop()
+    assert engine.EngineConfig(groups=2, peers=3, data_dir="d").device \
+        == "cuda"
+    assert hostengine.HostEngineConfig(groups=2, peers=3, data_dir="d",
+                                       host_id=0, frame_listen=listen
+                                       ).device == "cuda"
+    assert os.environ == env0 and "MHE_DEVICE" not in os.environ
+    child = obs.subprocess.Popen(
+        [sys.executable, "-c", "import os; print(os.environ['MHE_DEVICE'],"
+         " os.environ['ETCD_ENGINE_DEVICE'])"],
+        stdout=subprocess.PIPE, text=True)
+    assert child.communicate(timeout=60)[0].split() == ["cpu", "cpu"]

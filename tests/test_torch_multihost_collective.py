@@ -475,3 +475,24 @@ def test_disk_loss_rejoin_through_snapshots(tmp_path):
             assert _put(cl.base(2), g, "fresh", "f")["action"] == "set"
 
     _run(cl, body)
+
+
+def test_supervisor_ports_lie_below_the_ephemeral_range(tmp_path):
+    """The supervisor respawns every rank on the ports it picked at the
+    start. It picks them below the ephemeral range, distinct, and free to
+    listen on, so that no outbound connection made while the ranks are
+    down can hold one of them."""
+    import socket
+
+    from etcd_tpu_torch.tools import multihost_supervisor
+
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    sup = multihost_supervisor.Supervisor(
+        3, 4, str(tmp_path), str(tmp_path / "s.json"), stall_s=5.0,
+        poll_s=0.5)
+    ports = sup.http_ports + sup.frame_ports
+    assert len(set(ports)) == 6 and all(1024 <= p < low for p in ports)
+    for p in ports:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", p))
