@@ -170,7 +170,23 @@ exit) if any phase fails:
    (meta seed 0): random fault mixes of `oracle.run_equivalence` on the
    card with the CUDA `ring_resolve`, equal to the scalar Raft after
    every round; schedules per second and the starved count.
-14. one JSON line describing every kernel, then the last line
+14. bench: `python -m etcd_tpu_torch.bench` at its defaults (100,000
+   groups × 5 peers; churn at 7 peers; engine 100,000, latency 12,500,
+   qread 8,192, expiry_wave 4,096 × 16 TTL keys; 100,000 watchers;
+   10,000 depth-1 connections, 8 tenants, 2,000 hub watchers; the
+   direct leg 3,000), its ten scenarios as five invocations in two
+   waves, the host-bound qread, engine and shallow_clients at once, then
+   latency and the kernel scenarios (BENCH_WAVES: disjoint
+   BENCH_SCENARIO sets, each led by uniform; one after another they take
+   ~650 s; shallow_clients' measured legs 3 s): every scenario in its
+   line at those widths on platform "gpu", and its invariants (uniform,
+   zipf, lag and churn commit; lag partitions G/20 groups; churn's
+   liveness floor, every group led after the heal; engine's and
+   latency's acked counter equal to the engine's own count; qread's
+   read-only leg appends nothing; expiry_wave expires every TTL key;
+   shallow_clients loses no acked write through the ingress's SIGKILL);
+   ring_resolve's launches by scenario, TE=4 and TE=5 both above zero.
+15. one JSON line describing every kernel, then the last line
    {"ok": true, "device": {...}}.
 
 Needs a CUDA device; without one it exits nonzero and prints no result.
@@ -3276,6 +3292,191 @@ def phase_soak_kernel(dev, schedules=5, meta_seed=0):
     return ring_resolve.launches, by
 
 
+# The bench's widths on the card, its defaults (etcd_tpu_torch/bench.py):
+# every one is checked in its result lines.
+BENCH_WIDTHS = {"groups": G, "peers": P, "churn_peers": 7,
+                "engine_groups": G, "latency_groups": 12_500,
+                "qread_groups": 8_192, "expiry_groups": 4_096,
+                "ttl_keys": 4_096 * 16, "watchers": 100_000,
+                "conns": 10_000, "tenants": 8, "hub_watchers": 2_000}
+# The bench's invocations: waves run one after another, the
+# (BENCH_SCENARIO, BENCH_BUDGET_S, more environment) of a wave at once.
+# At its widths the ten scenarios take ~650 s one after another on an
+# H100 host (ten host-bound rounds are a floor: qread ~185 s, engine
+# ~115 s; shallow_clients ~135 s with 3 s legs; PERF.md), which with the
+# phases before it would pass the script's time limit. The first wave
+# holds the three host-bound ones, each a few cores of the host and
+# little of the card; the kernel scenarios, which keep the card busy,
+# wait for the second (four at once with them overran). Every set
+# starts with uniform (4 s), whose result is a line's headline; the
+# others keep every key. zipf, lag and churn stay in one set, in order:
+# they draw from one generator. A budget past a set's floors costs no
+# time where its scenarios' shares stay under their floors. The measured
+# legs of shallow_clients are cut to 3 s (15 by default): its depth, not
+# its width.
+BENCH_WAVES = ((("uniform,qread", 400, {}),
+                ("uniform,engine", 300, {}),
+                ("uniform,shallow_clients", 350,
+                 {"BENCH_SHALLOW_LEG_S": "3"})),
+               (("uniform,latency", 80, {}),
+                ("uniform,watch_storm,expiry_wave,zipf,lag,churn", 120,
+                 {})))
+
+
+def _bench_widths(metric, results) -> dict:
+    """The widths the bench ran at, by BENCH_WIDTHS' keys."""
+    groups, peers = (int(x) for x in metric.split("_")[4:7:2])
+    sh, ex = results["shallow_clients"], results["expiry_wave"]
+    return {"groups": groups, "peers": peers,
+            "churn_peers": results["churn"]["peers"],
+            "engine_groups": results["engine"]["groups"],
+            "latency_groups": results["latency"]["groups"],
+            "qread_groups": results["qread"]["groups"],
+            "expiry_groups": ex["groups"], "ttl_keys": ex["ttl_keys"],
+            "watchers": results["watch_storm"]["watchers"],
+            "conns": sh["conns"], "tenants": sh["tenants"],
+            "hub_watchers": sh["hub_fanout"]}
+
+
+def phase_bench(dev, waves=BENCH_WAVES, env=None,
+                widths=BENCH_WIDTHS) -> dict:
+    """`python -m etcd_tpu_torch.bench` as a user runs it, at its
+    defaults on the card: one invocation per (BENCH_SCENARIO,
+    BENCH_BUDGET_S, more environment) of `waves`, the invocations of a
+    wave at once (so their numbers are contended; PERF.md has each
+    scenario's alone), together the ten scenarios. `env` adds
+    variables, e.g. BENCH_PLATFORM=cpu and small sizes to rehearse on
+    the CPU with widths=None. Fails unless each exits 0 with its
+    scenarios in its last line (a scenario skipped for budget fails),
+    measured at `widths`, on the device's platform, and unless the
+    invariants hold: uniform, zipf, lag and churn commit; lag
+    partitions G//20 groups; churn's liveness floor holds with every
+    group led after the heal; engine's and latency's
+    `etcd_engine_acked_requests_total` moved by the engine's own acked
+    count; qread's read-only leg moved neither WAL bytes nor the log;
+    expiry_wave expired every TTL key; shallow_clients lost no acked
+    write. On the card both ring_resolve instantiations of the bench
+    shape (TE=4, TE=5) must have launched. Returns ring_resolve's
+    launches by scenario, summed over the invocations (shallow_clients':
+    its engine process's)."""
+    import torch
+    from etcd_tpu_torch import bench
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    runs = [r for wave in waves for r in wave]
+    procs, walls = [], []
+    with tempfile.TemporaryDirectory(prefix="smoke-bench-") as d:
+        try:
+            for wave in waves:
+                first = len(procs)
+                for k, (scenarios, budget_s, more) in enumerate(wave,
+                                                                first):
+                    with open(os.path.join(d, f"{k}.out"), "w") as out, \
+                            open(os.path.join(d, f"{k}.err"), "w") as err:
+                        procs.append(subprocess.Popen(
+                            [sys.executable, "-m", "etcd_tpu_torch.bench"],
+                            cwd=REPO, stdout=out, stderr=err,
+                            env=dict(os.environ, BENCH_SCENARIO=scenarios,
+                                     BENCH_BUDGET_S=str(budget_s),
+                                     **more, **(env or {}))))
+                for p in procs[first:]:
+                    p.wait(timeout=max(r[1] for r in wave) + 120)
+                    walls.append(round(time.perf_counter() - t0, 1))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        outs, failed = [], []
+        for k, p in enumerate(procs):
+            with open(os.path.join(d, f"{k}.out")) as f:
+                out = f.read()
+            with open(os.path.join(d, f"{k}.err")) as f:
+                err = f.read()
+            if p.returncode != 0:
+                failed.append(f"bench {runs[k][0]}: rc {p.returncode}; "
+                              f"stderr tail:\n{err[-3000:]}")
+                continue
+            outs.append((json.loads([ln for ln in out.splitlines()
+                                     if ln.startswith("{")][-1]), err))
+        if failed:
+            raise AssertionError("\n".join(failed))
+    results, primaries, launches, seconds = {}, [], {}, {}
+    for (line, err), (scenarios, _, _) in zip(outs, runs):
+        got = dict(line["scenarios"])
+        got[line["scenario"]] = dict(line, commits_per_sec=line["value"])
+        lines = {d["scenario"]: d for d in
+                 (json.loads(ln.split(bench.SCENARIO_LINE, 1)[1])
+                  for ln in err.splitlines()
+                  if ln.startswith(bench.SCENARIO_LINE))}
+        want = (bench.ORDER if scenarios == "all"
+                else scenarios.split(","))
+        missing = [sc for sc in want if sc not in got or sc not in lines
+                   or "skipped" in got[sc]]
+        if missing:
+            raise AssertionError(f"bench {scenarios}: scenarios missing "
+                                 f"or skipped: {missing}")
+        if line["platform"] != ("gpu" if on_card else "cpu"):
+            raise AssertionError(f"bench: platform {line['platform']}")
+        primaries.append(got.pop(line["scenario"]))
+        for sc, ln in lines.items():
+            if sc in got:
+                got[sc]["engine_acked"] = ln.get("engine_acked")
+            by = launches.setdefault(sc, dict.fromkeys(
+                ("generic", "te4", "te5"), 0))
+            for v, n in ln["launches_by_variant"].items():
+                by[v] += n
+            seconds.setdefault(sc, []).append(ln["seconds"])
+        results.update(got)
+    results.setdefault("uniform", primaries[0])
+    if set(results) != set(bench.ORDER):
+        raise AssertionError(f"bench: scenarios {sorted(results)}")
+    got_widths = _bench_widths(line["metric"], results)
+    if widths is not None and got_widths != widths:
+        raise AssertionError(f"bench: widths {got_widths} != {widths}")
+    G_b = got_widths["groups"]
+    bad = [sc for sc in ("zipf", "lag", "churn")
+           if not results[sc]["commits_per_sec"] > 0]
+    bad += ["uniform" for u in primaries if not u["value"] > 0]
+    ch = results["churn"]
+    if results["lag"]["lagged_groups"] != G_b // 20:
+        bad.append("lag.lagged_groups")
+    if not (ch["liveness_floor_ok"] is True
+            and ch["groups_with_leader_after_heal"] == G_b):
+        bad.append("churn.liveness")
+    for sc in ("engine", "latency"):
+        moved = results[sc]["metrics_delta"].get(
+            "etcd_engine_acked_requests_total")
+        if moved != results[sc]["engine_acked"]:
+            bad.append(f"{sc}.acked {moved} != "
+                       f"{results[sc]['engine_acked']}")
+    q = results["qread"]
+    if q["qread_wal_bytes_delta"] != 0 or q["qread_log_delta"] != 0:
+        bad.append("qread.zero_append")
+    if results["expiry_wave"]["unswept_tenants"] != 0:
+        bad.append("expiry_wave.unswept")
+    if results["shallow_clients"]["lost_acked_writes"] != 0:
+        bad.append("shallow_clients.lost_acked_writes")
+    if bad:
+        raise AssertionError(f"bench: invariants broken: {bad}")
+    total = {k: sum(v[k] for v in launches.values())
+             for k in ("generic", "te4", "te5")}
+    if on_card and not (total["te4"] and total["te5"]):
+        raise AssertionError(f"bench: the TE=4 and TE=5 kernels were not "
+                             f"both launched: {launches}")
+    log("bench", t0, waves=[[list(r) for r in w] for w in waves],
+        walls_s=walls,
+        device=line["device"],
+        power_limit_w=line["power_limit_w"], metric=line["metric"],
+        uniform_values=[u["value"] for u in primaries],
+        widths=got_widths, seconds=seconds,
+        launches_by_scenario=launches,
+        scenarios={sc: {k: v for k, v in r.items()
+                        if k not in ("metrics_delta", "scenarios")}
+                   for sc, r in results.items()})
+    return launches
+
+
 def ptxas_by_kernel(lines) -> dict:
     """ptxas's resource line for each compiled entry function."""
     out, name = {}, None
@@ -3330,7 +3531,13 @@ def main() -> int:
                          (("te4", 4), ("te5", 5), ("generic", P * E))})
 
     entry = phase_kernel(dev)
-    phase_round(dev)
+    # The depths cut to hold the whole script under the time limit with
+    # phase bench (PERF.md §4; no width is cut): the C-off runs at 300
+    # tenants, latency_hops at two sizes, 3 soak schedules, 20 rounds of
+    # phase round, mesh_round 6 rounds, the suite's compact leg 20
+    # rounds, and 300 tenants with 30 quorum GETs on every path but the
+    # engine's main one (500 and 50 on the HTTP front's).
+    phase_round(dev, rounds=20)
     phase_small_card_vs_cpu(dev)
     oracle_launches, oracle_by_variant = phase_raft_oracle(dev)
     launches, by_variant = phase_engine(dev)
@@ -3339,41 +3546,41 @@ def main() -> int:
     if not (by_variant["te4"] and by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the main path: {by_variant}")
-    # The depths cut to hold the whole script near 600 s with phase
-    # suite_card and the collective disk-loss leg (PERF.md §4): the C-off
-    # runs at 300 tenants, mesh_round at 16 rounds, latency_hops at two
-    # sizes, 3 soak schedules.
     off_launches, off_by_variant = phase_engine(
         dev, name="engine_native_off", native=False, tenants=300,
         quorum_gets=30)
-    suite = phase_suite_card(dev)
-    http_launches, http_by_variant, http_restart = phase_http_front(dev)
+    suite = phase_suite_card(dev, race=dict(first_writes=300),
+                             compact=dict(rounds=20), obs=dict(tenants=300))
+    http_launches, http_by_variant, http_restart = phase_http_front(
+        dev, tenants=500, quorum_gets=50)
     if not (http_by_variant["te5"] and http_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
                              f"{http_by_variant}")
     http_off_launches, http_off_by_variant, http_off_restart = \
         phase_http_front(dev, native=False, tenants=300, quorum_gets=30)
-    pool_stops = phase_pool_serve(dev)
+    pool_stops = phase_pool_serve(dev, tenants=300, quorum_gets=30)
     phase_tsan()
-    # 500 tenants, not 1,000: the load of this phase is what is cut to
-    # keep the whole script near 400 s with the phases after it.
     mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(
-        dev, tenants=500)
-    mesh_by_layout = phase_mesh_round(dev, rounds=16)
+        dev, tenants=200)
+    mesh_by_layout = phase_mesh_round(dev, rounds=6)
     from etcd_tpu_torch.parallel.mesh import make_mesh
     em_launches, em_by_variant = phase_engine(
-        dev, mesh=make_mesh([dev] * 4, peers_axis=1), name="engine_mesh")
+        dev, mesh=make_mesh([dev] * 4, peers_axis=1), name="engine_mesh",
+        tenants=300, quorum_gets=30)
     if not (em_by_variant["te4"] and em_by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the mesh engine's path: "
                              f"{em_by_variant}")
-    mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(dev)
-    phase_member_cluster(dev)
-    tools_launches, tools_by_variant = phase_tools_engine(dev)
+    mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(
+        dev, tenants=300, quorum_gets=30)
+    phase_member_cluster(dev, writes=300, quorum_gets=30)
+    tools_launches, tools_by_variant = phase_tools_engine(
+        dev, tenants=300, proxy_writes=100)
     hops_launches, hops_by_variant = phase_latency_hops(
         dev, groups=(12_500, G))
     soak_launches, soak_by_variant = phase_soak_kernel(dev, schedules=3)
+    bench_launches = phase_bench(dev)
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
@@ -3412,7 +3619,10 @@ def main() -> int:
         "latency_hops": {"launches": hops_launches,
                          "by_variant": hops_by_variant},
         "soak_kernel": {"launches": soak_launches,
-                        "by_variant": soak_by_variant}}
+                        "by_variant": soak_by_variant},
+        "bench": {"launches": sum(sum(v.values())
+                                  for v in bench_launches.values()),
+                  "by_scenario": bench_launches}}
     entry["equal_to_plain"] = True
     print(json.dumps({"kernels": [entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

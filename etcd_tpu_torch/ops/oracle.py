@@ -190,7 +190,7 @@ def run_equivalence(seed, groups=5, peers=3, window=32, max_ents=3,
                     partition_every=45, partition_len=12,
                     min_live_groups=None, n_peers=None, tick_p=1.0,
                     resolve=ring_resolve,
-                    on_round: Optional[Callable] = None, device="cpu"):
+                    on_round: Optional[Callable] = None, device="cuda"):
     """One schedule of the JAX package's equivalence tests, every group
     mirrored: the same numpy draws in the same order, so a seed gives the
     same faults, proposals and ticks as there. The round runs on `device`

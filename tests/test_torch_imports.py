@@ -55,7 +55,10 @@ TOOLS = ["pool_serve", "ingress_serve", "scale_curve", "profile_engine",
 CARD_TOOLS = {"latency_hops": (["64"], "--device cpu", {}),
               "soak": (["kernel", "1"], "--device cpu", {}),
               "multihost_bench": ([], "MHB_DEVICE=cpu",
-                                  {"MHB_OUT": "unused.json"})}
+                                  {"MHB_OUT": "unused.json"}),
+              "bench": ([], "BENCH_PLATFORM=cpu", {})}
+# A card tool's module where it is not etcd_tpu_torch.tools.<name>.
+CARD_TOOL_MODULES = {"bench": "etcd_tpu_torch.bench"}
 
 _IMPORT_LINE = re.compile(r"^(\s*(?:from|import)\s+)etcd_tpu_torch\b")
 
@@ -75,6 +78,7 @@ def test_engine_import_loads_no_jax_and_no_jax_package():
             + "import etcd_tpu_torch.store.native_store\n"
             "import etcd_tpu_torch.embed, etcd_tpu_torch.server.server\n"
             "import etcd_tpu_torch.etcdmain.etcd, etcd_tpu_torch.ops.oracle\n"
+            "import etcd_tpu_torch.bench\n"
             "print('\\n'.join(sorted(sys.modules)))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -88,6 +92,7 @@ def test_engine_import_loads_no_jax_and_no_jax_package():
     assert "etcd_tpu_torch.server.server" in out
     assert "etcd_tpu_torch.raft.core" in out
     assert "etcd_tpu_torch.etcdmain.etcd" in out
+    assert "etcd_tpu_torch.bench" in out
     assert "torch" in out
     assert [m for m in out if _is_forbidden(m)] == []
 
@@ -333,6 +338,20 @@ def test_state_defaults_to_the_card():
         init_state(KernelConfig(groups=2, peers=3))
 
 
+def test_oracle_schedules_default_to_the_card():
+    """run_equivalence and run_sampled run their rounds on "cuda" unless
+    the caller passes device="cpu" (test_torch_raft_oracle.py does)."""
+    import inspect
+
+    from etcd_tpu_torch.ops import oracle
+    for fn in (oracle.run_equivalence, oracle.run_sampled):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default runs there")
+    with pytest.raises((RuntimeError, AssertionError)):
+        oracle.run_equivalence(seed=1, rounds=1)
+
+
 def test_host_engine_and_launcher_default_to_the_card():
     """HostEngineConfig.device and the launcher's MHE_DEVICE default to
     "cuda", and the data plane to "collective" (as in the JAX package);
@@ -407,18 +426,20 @@ def test_host_engine_and_launcher_default_to_the_card():
 
 @pytest.mark.parametrize("tool", sorted(CARD_TOOLS))
 def test_card_tools_exit_1_without_a_card(tool, tmp_path):
-    """latency_hops, soak and multihost_bench run on the card unless the
-    caller asks for the CPU; without a card they exit 1 with a message
-    saying how to ask, and no traceback: none goes on on the CPU by
-    itself (tests/test_torch_etcd_tools.py runs them on the CPU)."""
+    """latency_hops, soak, multihost_bench and the bench run on the card
+    unless the caller asks for the CPU; without a card they exit 1 with a
+    message saying how to ask, and no traceback: none goes on on the CPU
+    by itself (tests/test_torch_etcd_tools.py and test_torch_bench.py run
+    them on the CPU)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
     args, how, env = CARD_TOOLS[tool]
     full = {k: v for k, v in os.environ.items()
-            if k not in ("PYTHONPATH", "MHB_DEVICE")}
+            if k not in ("PYTHONPATH", "MHB_DEVICE", "BENCH_PLATFORM")}
     full.update({k: str(tmp_path / v) for k, v in env.items()})
+    module = CARD_TOOL_MODULES.get(tool, f"etcd_tpu_torch.tools.{tool}")
     res = subprocess.run(
-        [sys.executable, "-m", f"etcd_tpu_torch.tools.{tool}", *args],
+        [sys.executable, "-m", module, *args],
         cwd=ROOT, env=full, capture_output=True, text=True, timeout=120)
     assert res.returncode == 1, res
     assert "no CUDA device" in res.stderr and how in res.stderr

@@ -12,8 +12,8 @@ rename does not reach; each is pointed at the port's counterpart here:
 - `_load_script("etcd_top")` loads `etcd_tpu_torch/tools/etcd_top.py`;
 - test_acked_counter_differential loads the JAX package's `bench.py` for
   `_metrics_snapshot` and `_metrics_delta`, which read the JAX package's
-  registry; its mirror below keeps its own copy of the two functions
-  over `etcd_tpu_torch.utils.metrics` (bench.py is not ported);
+  registry; its mirror below calls the port's bench's own two functions
+  (`etcd_tpu_torch.bench`, over `etcd_tpu_torch.utils.metrics`);
 - `_TRACE_CRASH_CHILD`, the source of the SIGKILLed child, builds its
   engine with `device="cpu"`.
 The environment variable ETCD_TPU_TRACE_EVERY keeps its name: obs.py is
@@ -21,7 +21,7 @@ a copy."""
 import importlib.util
 import os
 
-from etcd_tpu_torch.utils.metrics import REGISTRY
+from etcd_tpu_torch.bench import _metrics_delta, _metrics_snapshot
 from port_tests import on_the_port
 
 _obs = on_the_port("test_observability", cpu=True)
@@ -63,28 +63,6 @@ test_flight_and_traces_http = _obs.test_flight_and_traces_http
 test_sigusr2_dumps_flight_ring = _obs.test_sigusr2_dumps_flight_ring
 test_trace_ids_survive_sigkill_and_replay = \
     _obs.test_trace_ids_survive_sigkill_and_replay
-
-
-def _metrics_snapshot():
-    """bench.py::_metrics_snapshot over the port's registry: a flat
-    snapshot without the bucket series."""
-    return {k: v for k, v in REGISTRY.snapshot().items()
-            if not k.split("{", 1)[0].endswith("_bucket")}
-
-
-def _metrics_delta(before, after):
-    """bench.py::_metrics_delta: monotone series (_total/_count/_sum) as
-    their movement, gauges as their final value."""
-    out = {}
-    for k, v in sorted(after.items()):
-        base = k.split("{", 1)[0]
-        if base.endswith(("_total", "_count", "_sum")):
-            d = v - before.get(k, 0.0)
-            if d:
-                out[k] = round(d, 6)
-        else:
-            out[k] = round(v, 6)
-    return out
 
 
 def test_acked_counter_differential(eng_http):

@@ -53,7 +53,7 @@ SCHEDULES = [
 @pytest.mark.parametrize("kw", [k for _, k in SCHEDULES],
                          ids=[n for n, _ in SCHEDULES])
 def test_port_round_equals_the_scalar_raft(kw):
-    oracle.run_equivalence(resolve=ring_resolve_ref, **kw)
+    oracle.run_equivalence(resolve=ring_resolve_ref, device="cpu", **kw)
 
 
 def test_three_ways_jax_round_port_round_and_scalar_raft():
@@ -77,7 +77,8 @@ def test_three_ways_jax_round_port_round_and_scalar_raft():
             np.testing.assert_array_equal(got, want, err_msg=f"{i}: {f}")
         seen.append(i)
 
-    oracle.run_equivalence(resolve=ring_resolve_ref, on_round=on_round, **kw)
+    oracle.run_equivalence(resolve=ring_resolve_ref, on_round=on_round,
+                            device="cpu", **kw)
     assert seen == list(range(120))
 
 
