@@ -110,6 +110,22 @@ exit) if any phase fails:
    back from the rank that acked it; SIGTERM, rc 0 and an exit line
    from every rank (device, `ring_resolve` launches by instantiation,
    both above zero for TE=5 and generic, peak device memory).
+6a. frames_soak: tests/test_frames_plane.py's seeded chaos soak (seed
+   11; its schedule is tools/frames_soak.py's) with five in-process
+   `HostEngine`s on the card on the frames plane (12,500 groups, the
+   bench's per-card shard shape, SOAK_GROUPS; P=5 replicas, the soak's
+   W=8, max_ents 2 and fsync off; a client's attempt 20 s, not 2:
+   SOAK_ATTEMPT_S): every group led; every engine alive and a write to
+   each of 200 fixed groups (0 and G-1 among them) acked after each
+   step, within the soak's deadlines; twice a stop() of one engine,
+   writes through the survivors, its restart on its own data dir; one
+   pair's frames blocked both ways, writes through a third engine, the
+   heal. Logged with the card's name and power limit: seconds to
+   re-elect after each stop, until the restarted engine serves, to serve
+   through the partition, the most attempts a step's write took, and
+   ring_resolve's launches over the leg by instantiation. The leg runs in a process of its own, killed past
+   SOAK_LIMIT_S, after multihost_collective (9) and beside phases 7, 8
+   and 10-13, whose numbers are taken beside it (contended).
 7. mesh_round: the bench shape's round (hops=3, E=4) for 16 rounds with
    random proposals and 5% drops, unsharded, on a 4 x 1 mesh (groups
    axis) and on a 1 x 5 mesh (peers axis), every cell on the one card:
@@ -174,7 +190,8 @@ exit) if any phase fails:
    groups × 5 peers; churn at 7 peers; engine 100,000, latency 12,500,
    qread 8,192, expiry_wave 4,096 × 16 TTL keys; 100,000 watchers;
    10,000 depth-1 connections, 8 tenants, 2,000 hub watchers; the
-   direct leg 3,000), its ten scenarios as five invocations in two
+   direct leg 3,000; the kernel scenarios' measured rounds cut to 100
+   from 300, depth), its ten scenarios as five invocations in two
    waves, the host-bound qread, engine and shallow_clients at once, then
    latency and the kernel scenarios (BENCH_WAVES: disjoint
    BENCH_SCENARIO sets, each led by uniform; one after another they take
@@ -1896,8 +1913,8 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
           for i in range(tenants)]
     client = {g: (i + 1) % hosts for i, g in enumerate(gs)}
     victim = hosts - 1
-    http_ports = _free_ports(hosts)
-    frame_ports = _free_ports(hosts)
+    ports = _free_ports(2 * hosts)     # one draw: the two sets disjoint
+    http_ports, frame_ports = ports[:hosts], ports[hosts:]
     procs = [None] * hosts
     with tempfile.TemporaryDirectory(prefix="chip_smoke-mhe-") as d:
         logs = [os.path.join(d, f"rank{r}.err") for r in range(hosts)]
@@ -2127,6 +2144,233 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
                                  else ln["peak_device_bytes"] / 2 ** 20
                                  for ln in lines])
     return sum(by_variant.values()), by_variant, lines
+
+
+SOAK_SAMPLE = 200     # groups each of its "all serving" steps writes
+# The soak's client gives a write 2 s an attempt and then proposes it
+# anew. Five engines in one process share one GIL: on an H100 their
+# rounds take 0.7-1.0 s at 12,500 and 100,000 groups alike, and a write
+# forwarded to another engine's leader takes five to seven of them
+# (PERF.md §7). An attempt not much longer than that can be cancelled
+# just before its write acks, again and again: with 6 s attempts a few
+# writes through a restarted engine never acked within a step's 150 s.
+# An attempt here is 20 s, about three times the slowest write; the
+# soak's deadline for each step stays as it is.
+SOAK_ATTEMPT_S = 20.0
+# The bench's per-card shard shape. At 100,000 groups the leg takes
+# ~380 s against phases 7-13's ~175 s beside it, which would put the
+# script near its 1,200 s limit; with 6 s attempts it also missed there
+# once (188 of 200 writes acked in the 150 s after the first restart;
+# PERF.md §7).
+SOAK_GROUPS = 12_500
+# The leg's limit: it took 295 s at 12,500 groups and 381 s at 100,000
+# beside phases 7-13 on an H100 (PERF.md §6).
+SOAK_LIMIT_S = 600
+
+
+def phase_frames_soak(dev, groups=SOAK_GROUPS, hosts=NHOSTS,
+                      sample=SOAK_SAMPLE):
+    """tests/test_frames_plane.py's seeded chaos soak of the frames
+    plane (`slow` there), on the card: `hosts` in-process `HostEngine`s
+    on `dev`, one replica of every group each, with the soak's engine
+    settings (W=8, max_ents 2, fsync off, 5 ms between rounds,
+    request_timeout 6 s), the mailbox, proposals and payloads on frames
+    between them. Every group led (90 s), then tools/frames_soak.py's
+    schedule (seed 11: every engine serving; twice a stop(), writes
+    through the survivors, the restart; a pair partitioned and healed),
+    writing one key to each of `sample` fixed groups (0 and G-1 among
+    them) from 100 threads: the depth cut (the soak writes every one of
+    its 6 groups). Logs per step: seconds to the step's last ack; after
+    each stop, the seconds until every one of the G groups has a live
+    leader again (measured beside the schedule, up to 150 s; null and
+    the count of groups left without one past that); after each restart,
+    the seconds to rebuild the engine on its data dir and from its start
+    until it acks every write sent through it; through the partition,
+    the seconds to its last ack; ring_resolve's launches over the leg by
+    instantiation, and the card's name and power limit. Returns the
+    launches, in all and by instantiation."""
+    import torch
+    from etcd_tpu_torch.server.hostengine import HostEngine, HostEngineConfig
+    from etcd_tpu_torch.tools import frames_soak
+    t0 = time.perf_counter()
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip() if torch.device(dev).type == "cuda" \
+        else "cpu"
+    gs = [int(g) for g in np.linspace(0, groups - 1, sample)]
+    assert len(set(gs)) == sample and gs[0] == 0 and gs[-1] == groups - 1
+    ports = _free_ports(hosts)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_soak_")
+
+    def mk(r):
+        return HostEngine(HostEngineConfig(
+            groups=groups, peers=hosts,
+            data_dir=os.path.join(tmp, f"host{r}"), host_id=r,
+            frame_listen=("127.0.0.1", ports[r]),
+            frame_peers={h: ("127.0.0.1", ports[h]) for h in range(hosts)},
+            window=8, max_ents=2, fsync=False, stagger=True,
+            round_interval=0.005, request_timeout=6.0,
+            data_plane="frames", device=str(dev)))
+
+    def led(among):
+        known = np.zeros(groups, bool)
+        for e in among:
+            known |= (e.l_state == 2) | (e.l_lead > 0)
+        return bool(known.all())
+
+    def until(cond, deadline_s, what):
+        t1 = time.perf_counter()
+        while not cond():
+            if time.perf_counter() - t1 > deadline_s:
+                raise AssertionError(f"frames_soak: {what} not within "
+                                     f"{deadline_s} s")
+            time.sleep(0.05)
+        return round(time.perf_counter() - t1, 3)
+
+    def last_ack(acks):
+        return round(max(s for _, s, _ in acks.values()), 3)
+
+    def attempts(acks):
+        return max(n for _, _, n in acks.values())
+
+    def live_led():
+        live = [e for i, e in enumerate(engines) if i != cur["victim"]]
+        return bool(np.any([e.l_state == 2 for e in live], axis=0).all())
+
+    def watch():
+        # Every group led by a live engine again: the survivors, and the
+        # restarted engine once it runs. Measured beside the schedule,
+        # which does not wait for it.
+        try:
+            cur["reelect_s"] = until(live_led, 150, "re-election")
+        except AssertionError:
+            cur["reelect_s"] = None
+
+    cur = {}
+
+    def on_step(name, info):
+        if name == "baseline":
+            log("frames_soak", t0, step="baseline", card=card,
+                groups=groups, hosts=hosts, sampled_groups=sample,
+                boot_s=boot_s, serve_s=last_ack(info["acks"]),
+                attempts_max=attempts(info["acks"]))
+        elif name == "stopped":
+            cur.clear()
+            cur.update(victim=info["victim"], t_stop=time.perf_counter())
+            cur["watch"] = threading.Thread(target=watch, daemon=True)
+            cur["watch"].start()
+        elif name == "outage":
+            cur["through_s"] = last_ack(info["acks"])
+            cur["through_attempts"] = attempts(info["acks"])
+        elif name == "restarted":
+            cur["rebuild_s"] = info["rebuild_s"]
+            cur["t_start"] = time.perf_counter()
+        elif name == "post_restart":
+            cur["victim"] = None      # live_led: every engine again
+            mine = [s for i, s, _ in info["acks"].values()
+                    if i == info["victim"]]
+            cur["watch"].join(timeout=max(
+                0.0, 155 - (time.perf_counter() - cur["t_stop"])))
+            log("frames_soak", t0, step=f"kill_cycle_{info['cycle']}",
+                card=card, victim=info["victim"],
+                reelect_s=cur.get("reelect_s"),
+                unled_groups=None if cur.get("reelect_s") is not None
+                else int(groups - np.any([e.l_state == 2 for e in engines],
+                                         axis=0).sum()),
+                write_through_outage_s=cur["through_s"],
+                outage_attempts_max=cur["through_attempts"],
+                outage_s=round(cur["t_start"] - cur["t_stop"], 3),
+                rebuild_s=round(cur["rebuild_s"], 3),
+                restarted_serves_s=round(max(mine), 3),
+                restarted_writes=len(mine),
+                serve_s=last_ack(info["acks"]),
+                attempts_max=attempts(info["acks"]))
+        elif name == "partition":
+            cur.update(info)
+        elif name == "post_heal":
+            launches, by_variant = _launches_read()
+            cur.update(launches=launches, by_variant=by_variant)
+            log("frames_soak", t0, step="partition", card=card,
+                pair=cur["pair"], via=cur["via"],
+                partition_serve_s=last_ack(cur["acks"]),
+                blocked_frames_dropped=cur["blocked_frames_dropped"],
+                post_heal_serve_s=last_ack(info["acks"]),
+                attempts_max=max(attempts(cur["acks"]),
+                                 attempts(info["acks"])),
+                round_ms=[round(e.round_ms_ewma, 3) for e in engines],
+                launches=launches, launches_by_variant=by_variant)
+
+    _launches_reset()
+    engines = [mk(r) for r in range(hosts)]
+    for e in engines:
+        e.start()
+    try:
+        boot_s = until(lambda: led(engines), 90, "every group led")
+        frames_soak.run(engines, mk, gs, attempt_s=SOAK_ATTEMPT_S,
+                        threads=100, on_step=on_step)
+    finally:
+        for e in engines:
+            try:
+                e.stop()
+            except Exception:  # noqa: BLE001 — stopped in the schedule
+                pass
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    if cur["launches"] <= 0:
+        raise AssertionError("ring_resolve was not launched on frames_soak")
+    return cur["launches"], cur["by_variant"]
+
+
+def phase_frames_soak_process(dev, groups=SOAK_GROUPS,
+                              timeout_s=SOAK_LIMIT_S):
+    """phase_frames_soak in a fresh interpreter of its own, each of its
+    lines passed on when the next comes, killed past `timeout_s` whether
+    it prints or not. The five engines share one GIL; in the smoke's own
+    process, after every earlier phase, their rounds took ~25% longer
+    (990 against 705-830 ms at 12,500 groups, 1,017-1,039 against 765-779
+    at 100,000) and a restarted engine missed the soak's 150 s deadline
+    at both sizes (PERF.md §6). Returns the leg's ring_resolve launches,
+    in all and by instantiation, from the child's last line."""
+    import queue
+    code = ("import json, chip_smoke, torch\n"
+            "n, by = chip_smoke.phase_frames_soak("
+            f"torch.device({str(dev)!r}), groups={groups})\n"
+            "print(json.dumps({'launches': n, 'by_variant': by}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    t_end = time.monotonic() + timeout_s
+    last = ""
+    try:
+        while True:
+            try:
+                line = lines.get(timeout=max(0.0, t_end - time.monotonic()))
+            except queue.Empty:
+                raise AssertionError(
+                    f"frames_soak: past its {timeout_s} s limit") from None
+            if line is None:
+                break
+            if last:
+                print(last, end="", flush=True)
+            last = line
+        rc = proc.wait(timeout=max(1.0, t_end - time.monotonic()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if rc != 0:
+        raise AssertionError(f"frames_soak: rc={rc}; last line {last!r}")
+    out = json.loads(last)
+    return out["launches"], out["by_variant"]
 
 
 def _gloo_cuda_probe(dev) -> str:
@@ -3563,24 +3807,35 @@ def main() -> int:
     phase_tsan()
     mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(
         dev, tenants=200)
-    mesh_by_layout = phase_mesh_round(dev, rounds=6)
-    from etcd_tpu_torch.parallel.mesh import make_mesh
-    em_launches, em_by_variant = phase_engine(
-        dev, mesh=make_mesh([dev] * 4, peers_axis=1), name="engine_mesh",
-        tenants=300, quorum_gets=30)
-    if not (em_by_variant["te4"] and em_by_variant["te5"]):
-        raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
-                             f"launched on the mesh engine's path: "
-                             f"{em_by_variant}")
     mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(
         dev, tenants=300, quorum_gets=30)
-    phase_member_cluster(dev, writes=300, quorum_gets=30)
-    tools_launches, tools_by_variant = phase_tools_engine(
-        dev, tenants=300, proxy_writes=100)
-    hops_launches, hops_by_variant = phase_latency_hops(
-        dev, groups=(12_500, G))
-    soak_launches, soak_by_variant = phase_soak_kernel(dev, schedules=3)
-    bench_launches = phase_bench(dev)
+    # frames_soak (~300 s in a process of its own, its engines a core or
+    # two) runs beside the phases up to soak_kernel,
+    # which hold the card and the host lightly: the script stays inside
+    # its time limit. Their numbers are taken beside it (contended).
+    with ThreadPoolExecutor(1) as beside:
+        soak_f = beside.submit(phase_frames_soak_process, dev)
+        mesh_by_layout = phase_mesh_round(dev, rounds=6)
+        from etcd_tpu_torch.parallel.mesh import make_mesh
+        em_launches, em_by_variant = phase_engine(
+            dev, mesh=make_mesh([dev] * 4, peers_axis=1),
+            name="engine_mesh", tenants=300, quorum_gets=30)
+        if not (em_by_variant["te4"] and em_by_variant["te5"]):
+            raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
+                                 f"launched on the mesh engine's path: "
+                                 f"{em_by_variant}")
+        phase_member_cluster(dev, writes=300, quorum_gets=30)
+        tools_launches, tools_by_variant = phase_tools_engine(
+            dev, tenants=300, proxy_writes=100)
+        hops_launches, hops_by_variant = phase_latency_hops(
+            dev, groups=(12_500, G))
+        soak_launches, soak_by_variant = phase_soak_kernel(dev, schedules=3)
+        soak_f_launches, soak_f_by_variant = soak_f.result()
+    if not (soak_f_by_variant["te5"] and soak_f_by_variant["generic"]):
+        raise AssertionError(f"the TE=5 and generic kernels were not both "
+                             f"launched on frames_soak: {soak_f_by_variant}")
+    # The kernel scenarios' measured rounds cut to 100 (300): depth.
+    bench_launches = phase_bench(dev, env={"BENCH_ROUNDS": "100"})
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
@@ -3604,6 +3859,8 @@ def main() -> int:
         "multihost_frames": {
             "launches": mh_launches, "by_variant": mh_by_variant,
             "by_rank": [ln["launches_by_variant"] for ln in mh_lines]},
+        "frames_soak": {"launches": soak_f_launches,
+                        "by_variant": soak_f_by_variant},
         "mesh_round": {
             "launches": sum(sum(v.values()) for v in mesh_by_layout.values()),
             "by_layout": mesh_by_layout},

@@ -24,6 +24,7 @@ import hmac
 import json
 import logging
 import os
+import threading
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -60,8 +61,12 @@ def hash_password(password: str, iters: Optional[int] = None) -> str:
 # a process-memory disclosure of the key must not hand an attacker a
 # GPU-speed fingerprint of an in-use password (bare sha256 would undo
 # the 600k-iteration hardening by ~10^6x for recently-auth'd accounts).
-# Bounded; cleared wholesale when full.
+# Only successful verifications are cached, and a full cache evicts its
+# oldest entry: a spray of wrong passwords adds no entry, so it cannot
+# flush the legitimate users' entries (each wrong guess still pays the
+# full PBKDF2).
 _VERIFY_CACHE: dict = {}
+_VERIFY_LOCK = threading.Lock()   # handler threads evict and insert
 _VERIFY_CACHE_MAX = 1024
 _CACHE_KEY_ITERS = 1000
 
@@ -74,15 +79,16 @@ def check_password(stored: str, password: str) -> bool:
         ck = hashlib.pbkdf2_hmac("sha256", password.encode(),
                                  f"cache\x00{stored}".encode(),
                                  _CACHE_KEY_ITERS)
-        hit = _VERIFY_CACHE.get(ck)
-        if hit is not None:
-            return hit
+        if ck in _VERIFY_CACHE:
+            return True
         got = hashlib.pbkdf2_hmac("sha256", password.encode(), salt.encode(),
                                   int(iters)).hex()
         ok = hmac.compare_digest(got, want)
-        if len(_VERIFY_CACHE) >= _VERIFY_CACHE_MAX:
-            _VERIFY_CACHE.clear()
-        _VERIFY_CACHE[ck] = ok
+        if ok:
+            with _VERIFY_LOCK:
+                if len(_VERIFY_CACHE) >= _VERIFY_CACHE_MAX:
+                    _VERIFY_CACHE.pop(next(iter(_VERIFY_CACHE)), None)
+                _VERIFY_CACHE[ck] = True
         return ok
     except (ValueError, AttributeError):
         return False

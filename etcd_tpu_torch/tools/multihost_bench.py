@@ -2,7 +2,8 @@
 process, at one group count:
 
   frames3     3 frames-plane HostEngines (real TCP frames, real per-host
-              WALs, fsync on): saturated acked writes/s, then paced
+              WALs, fsync on): saturated acked writes/s (a closed loop
+              holding `in_flight_cap(G)` writes in flight), then paced
               50%-load ack p50/p99 sampled at the leader host's wait
               registry.
   single_h1   single-host MultiEngine, same G, hops=1 (the multi-host
@@ -58,30 +59,60 @@ def _percentiles(samples):
             round(1000 * float(np.percentile(lats, 99)), 2), len(lats))
 
 
+def in_flight_cap(G):
+    """Phase A's bound on writes offered and not yet acked: two rounds'
+    admission (a round admits max_ents=4 entries a group), so the next
+    round has work queued while one commits and applies; at least 16,384
+    so that a small G still queues deep enough to batch."""
+    return max(2 * 4 * G, 16384)
+
+
+def drain_limit_s(secs):
+    """How long phase A waits, after its window, for its writes in
+    flight to ack."""
+    return max(60.0, 8.0 * secs)
+
+
 def _measure(label, G, secs, enqueue, sample_one, round_ms_fn, acked_fn):
     """Shared two-phase meter: saturated throughput, then paced 50%-load
     latency. `enqueue(k)` offers k pool writes spread over groups;
-    `sample_one()` offers one latency-sampled write."""
-    # Phase A: saturated.
+    `sample_one()` offers one latency-sampled write.
+
+    Phase A is a closed loop: every 5 ms it tops the writes in flight
+    (offered, not yet acked) back up to `in_flight_cap(G)`, so the
+    engines always hold work and are never flooded. After its window the
+    writes still in flight drain, for at most `drain_limit_s(secs)`; its
+    rate is every write acked from its start to the drain's end over that
+    time. `drained` says whether every offered write acked: only then
+    does phase B start from empty queues. Where it is false, phase B's
+    writes queue behind phase A's and its latencies are not a 50%-load
+    reading."""
+    cap = in_flight_cap(G)
     a0 = acked_fn()
+    offered = 0
     t0 = time.time()
     while time.time() - t0 < secs:
-        enqueue(4 * G)
+        k = cap - (offered - (acked_fn() - a0))
+        if k > 0:
+            enqueue(k)
+            offered += k
         time.sleep(0.005)
-    # Settle: wait until the ack counter stops moving (backlog drained).
-    t_settle = time.time()
-    last = acked_fn()
-    while time.time() - t_settle < 10:
-        time.sleep(0.25)
-        cur = acked_fn()
-        if cur == last:
-            break
-        last = cur
-    aps = (acked_fn() - a0) / (time.time() - t0)
+    t_drain = time.time()
+    while (acked_fn() - a0 < offered
+           and time.time() - t_drain < drain_limit_s(secs)):
+        time.sleep(0.05)
+    acked_a = acked_fn() - a0
+    drained = acked_a >= offered
+    aps = acked_a / (time.time() - t0)
+    if not drained:
+        print(f"[{label}] phase A did not drain: {offered - acked_a} of "
+              f"{offered} writes unacked {drain_limit_s(secs)} s after "
+              f"its window", file=sys.stderr, flush=True)
 
     # Phase B: paced at 50% of measured capacity, every 8th sampled.
     samples = []
     rate = max(aps * 0.5, 50.0)
+    b0 = acked_fn()
     t_b = time.time()
     injected = 0
     while time.time() - t_b < secs:
@@ -96,6 +127,9 @@ def _measure(label, G, secs, enqueue, sample_one, round_ms_fn, acked_fn):
     time.sleep(2.0)   # let the tail ack
     p50, p99, n_lat = _percentiles(samples)
     res = {"acked_writes_per_sec": round(aps, 1),
+           "saturated_acked": acked_a, "saturated_offered": offered,
+           "in_flight_cap": cap, "drained": drained,
+           "paced_acked": acked_fn() - b0,
            "paced_p50_ms": p50, "paced_p99_ms": p99,
            "latency_samples": n_lat, "round_ms": round(round_ms_fn(), 3),
            "groups": G, "hosts_or_hops": label}
@@ -161,10 +195,13 @@ def bench_frames3(tmp, G, secs, device):
             e._dirty.add(g)
         return s
 
+    # Every host applies every committed write and counts it in its
+    # acked_requests, the proposer's ack and the others' applies alike:
+    # a write counts once, as the hosts' mean.
     res = _measure("frames3", G, secs, enqueue, sample_one,
                    lambda: float(np.mean([e.round_ms_ewma
                                           for e in engines])),
-                   lambda: sum(e.acked_requests for e in engines))
+                   lambda: sum(e.acked_requests for e in engines) // N)
     for e in engines:
         e.stop()
     return res

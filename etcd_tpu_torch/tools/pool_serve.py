@@ -66,8 +66,11 @@ def make_router(groups: int, per_shard: int, shard_ports):
             with 501: answering from one shard would silently misreport
             the pool (a local id would read as global, and shards >= 1
             would be invisible). Lifecycle runs against shard ports
-            directly; the pool map is static (--groups/--shards)."""
-            parts = self.path.split("/", 3)
+            directly; the pool map is static (--groups/--shards). So are
+            PUT and DELETE on the bare /tenants/{t} path (create, remove):
+            the shard would answer with its local id."""
+            path, sep, query = self.path.partition("?")
+            parts = path.split("/", 3)
             if len(parts) >= 3 and parts[1] == "tenants" and parts[2]:
                 try:
                     t = int(parts[2])
@@ -75,10 +78,12 @@ def make_router(groups: int, per_shard: int, shard_ports):
                     return None, None
                 if not 0 <= t < groups:
                     return None, None
+                rest = parts[3] if len(parts) > 3 else ""
+                if rest == "" and self.command in ("PUT", "DELETE"):
+                    return -1, self.path
                 s = t // per_shard
                 local = t % per_shard
-                rest = parts[3] if len(parts) > 3 else ""
-                return s, f"/tenants/{local}/{rest}"
+                return s, f"/tenants/{local}/{rest}{sep}{query}"
             if parts[1:2] == ["health"]:
                 return 0, self.path
             return -1, self.path

@@ -22,7 +22,14 @@ touching the port's defaults (`EngineConfig.device`,
   `ETCD_ENGINE_DEVICE=cpu` (the CLI's `--engine-device`), unless the
   test set them.
 A child that builds an engine from source text is the mirror's to bind
-(tests/test_torch_observability_ref.py does)."""
+(tests/test_torch_observability_ref.py does).
+
+`on_the_port(name, helpers=("raft_fixtures",))` also gives the module
+the port's copy of each named helper module of tests/: its
+`from tests.raft_fixtures import ...` (or `from raft_fixtures import
+...`) lines import `on_the_port("raft_fixtures")` instead, so the
+fixtures it builds are the port's too. The JAX package's own import of
+the helper is not touched."""
 import builtins
 import dataclasses
 import importlib
@@ -88,10 +95,15 @@ class _CpuSubprocess(types.ModuleType):
         self.Popen = Popen
 
 
-def on_the_port(name: str, cpu: bool = False) -> types.ModuleType:
+def on_the_port(name: str, cpu: bool = False,
+                helpers: tuple = ()) -> types.ModuleType:
     path = os.path.join(HERE, name + ".py")
     with open(path) as f:
         src = _IMPORT_LINE.sub(r"\1etcd_tpu_torch", f.read())
+    for h in helpers:
+        port_h = on_the_port(h, cpu=cpu).__name__
+        src = re.sub(rf"^(\s*from\s+)(?:tests\.)?{h}(\s+import\b)",
+                     rf"\g<1>{port_h}\2", src, flags=re.M)
     mod = types.ModuleType(f"{name}__on_the_port")
     mod.__file__ = path
     if cpu:

@@ -22,6 +22,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 
 import pytest
@@ -223,4 +224,71 @@ def test_multihost_bench_on_the_cpu(tmp_path):
     assert got["device"] == "cpu" and got["groups"] == 8
     for phase in ("frames3", "single_h1", "single_h3"):
         assert got[phase]["acked_writes_per_sec"] > 0, got
+        # Both phases ack: the saturated closed loop and the paced one.
+        assert got[phase]["saturated_acked"] > 0, got
+        assert got[phase]["paced_acked"] > 0, got
+        assert got[phase]["in_flight_cap"] == 16384, got
+        assert got[phase]["drained"] is True, got
+        # Each write counts once: frames3's three hosts each apply it.
+        assert (got[phase]["saturated_acked"]
+                == got[phase]["saturated_offered"]), got
     assert json.loads(res.stdout.strip().splitlines()[-1]) == got
+
+
+def test_multihost_bench_saturates_through_a_closed_loop():
+    """The saturated phase keeps the writes in flight (offered, not yet
+    acked) at or under `in_flight_cap(G)` whatever G, where an open loop
+    offering 4·G writes every 5 ms flooded the engines at 100,000 groups
+    (they acked nothing). Here a stand-in engine acks 1,000 queued writes
+    a millisecond, FIFO, at G = 100,000: its queue holds more than one
+    round's admission (4·G) and never more than the cap, phase A drains,
+    and both phases ack."""
+    import collections
+    from etcd_tpu_torch.tools import multihost_bench as mhb
+    G = 100_000
+    lock = threading.Lock()
+    queue = collections.deque()      # [count, sample or None]
+    state = {"acked": 0, "peak": 0, "stop": False}
+
+    def enqueue(k):
+        with lock:
+            queue.append([k, None])
+            state["peak"] = max(state["peak"],
+                                sum(c for c, _ in queue))
+
+    def sample_one():
+        s = mhb._Sample()
+        with lock:
+            queue.append([1, s])
+        return s
+
+    def engine():
+        while not state["stop"]:
+            with lock:
+                budget = 1000
+                while queue and budget:
+                    item = queue[0]
+                    n = min(item[0], budget)
+                    item[0] -= n
+                    budget -= n
+                    state["acked"] += n
+                    if item[0] == 0:
+                        queue.popleft()
+                        if item[1] is not None:
+                            item[1].put(True)
+            time.sleep(0.001)
+
+    th = threading.Thread(target=engine, daemon=True)
+    th.start()
+    try:
+        res = mhb._measure("stand-in", G, 0.5, enqueue, sample_one,
+                           lambda: 1.0, lambda: state["acked"])
+    finally:
+        state["stop"] = True
+        th.join(timeout=10)
+    cap = mhb.in_flight_cap(G)
+    assert cap == 2 * 4 * G
+    assert res["in_flight_cap"] == cap and res["drained"] is True
+    assert 4 * G < state["peak"] <= cap, state["peak"]
+    assert res["saturated_acked"] > 0 and res["acked_writes_per_sec"] > 0
+    assert res["paced_acked"] > 0 and res["latency_samples"] > 0

@@ -16,7 +16,12 @@ Two differentials hold the port against the JAX package's HostEngine:
   (geometry.json, the WAL and checkpoints), with the same keys, terms,
   votes, commits and log rings.
 
-The JAX package's chaos soak (marked slow there) is not mirrored."""
+test_chaos_soak_kill_partition_cycles mirrors the JAX package's seeded
+soak of the frames plane (`slow`, as there): seed 11, two stop-and-
+restart cycles and one partition window, every engine alive and every
+group serving after each step. Its schedule is tools/frames_soak.py's,
+which chip_smoke.py's frames_soak leg runs with five engines on the
+card."""
 import json
 import os
 import shutil
@@ -30,7 +35,7 @@ from etcd_tpu.tools.functional_tester import _free_ports
 from etcd_tpu_torch import errors
 from etcd_tpu_torch.server import hostengine as the
 from etcd_tpu_torch.server.request import Request
-from etcd_tpu_torch.tools import multihost_supervisor
+from etcd_tpu_torch.tools import frames_soak, multihost_supervisor
 
 G = 6
 N = 3
@@ -234,6 +239,26 @@ def test_partition_isolated_majority_keeps_serving(tmp_path):
         engines[1].frames.blocked.clear()
         _wait_values(engines[:2], {(g, f"/1/part{g}"): "v1"
                                    for g in range(G)}, timeout=150)
+    finally:
+        _stop_all(engines)
+
+
+@pytest.mark.slow
+def test_chaos_soak_kill_partition_cycles(tmp_path):
+    """Mirror of tests/test_frames_plane.py's seeded mini-soak on the
+    port: repeated host kills (with restart) and a partition window,
+    liveness asserted after every injection (etcd-tester's failure rounds
+    in a loop, etcd-tester/tester.go). The schedule is
+    tools/frames_soak.py's, which chip_smoke.py runs too: the JAX soak's
+    seed, steps, deadlines, sequential writes and 2 s attempts."""
+    ports = _free_ports(N)
+    engines = [_mk(r, ports, str(tmp_path)) for r in range(N)]
+    for e in engines:
+        e.start()
+    try:
+        _wait_all_leaders(engines)
+        frames_soak.run(engines, lambda r: _mk(r, ports, str(tmp_path)),
+                        range(G))
     finally:
         _stop_all(engines)
 

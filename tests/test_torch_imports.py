@@ -21,7 +21,7 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "store/watcher.py", "store/store.py", "server/request.py",
             "server/obs.py", "server/enginewal.py", "server/walwriter.py",
             "version.py", "utils/tlsutil.py", "server/cluster.py",
-            "server/security.py", "etcdhttp/web.py", "etcdhttp/client.py",
+            "etcdhttp/web.py", "etcdhttp/client.py",
             "etcdhttp/client_security.py", "server/batchframe.py",
             "etcdhttp/tenants.py", "server/ingress.py",
             "parallel/frames.py", "store/native_store.py",
@@ -250,6 +250,51 @@ def test_dump_logs_differs_only_by_usage_and_batched_entries():
         "for r in rs)",
         "+                except (ValueError, struct.error):",
         "+                    kind = \"multi<bad>\"",
+    ]
+
+
+def test_security_differs_only_by_the_verify_cache():
+    """server/security.py is the JAX package's, apart from import lines,
+    with one departure: `check_password` caches only successful
+    verifications and evicts its oldest entry when full, where its
+    source caches failures too and clears the whole cache (a spray of
+    wrong passwords flushed the legitimate users' entries;
+    tests/test_torch_security_ref.py holds the behaviour). A lock guards
+    the evict-and-insert: the HTTP handlers' threads call it at once."""
+    import difflib
+    rel = "server/security.py"
+    ours = [_IMPORT_LINE.sub(r"\1etcd_tpu", ln)
+            for ln in open(os.path.join(PKG, rel)).read().splitlines()]
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    diff = [ln for ln in difflib.unified_diff(theirs, ours, lineterm="",
+                                              n=0)
+            if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+    assert diff == [
+        "+import threading",
+        "-# Bounded; cleared wholesale when full.",
+        "+# Only successful verifications are cached, and a full cache "
+        "evicts its",
+        "+# oldest entry: a spray of wrong passwords adds no entry, so it "
+        "cannot",
+        "+# flush the legitimate users' entries (each wrong guess still "
+        "pays the",
+        "+# full PBKDF2).",
+        "+_VERIFY_LOCK = threading.Lock()   # handler threads evict and "
+        "insert",
+        "-        hit = _VERIFY_CACHE.get(ck)",
+        "-        if hit is not None:",
+        "-            return hit",
+        "+        if ck in _VERIFY_CACHE:",
+        "+            return True",
+        "-        if len(_VERIFY_CACHE) >= _VERIFY_CACHE_MAX:",
+        "-            _VERIFY_CACHE.clear()",
+        "-        _VERIFY_CACHE[ck] = ok",
+        "+        if ok:",
+        "+            with _VERIFY_LOCK:",
+        "+                if len(_VERIFY_CACHE) >= _VERIFY_CACHE_MAX:",
+        "+                    _VERIFY_CACHE.pop(next(iter(_VERIFY_CACHE)), "
+        "None)",
+        "+                _VERIFY_CACHE[ck] = True",
     ]
 
 

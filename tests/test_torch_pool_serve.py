@@ -187,3 +187,91 @@ def test_pool_sharded_serving(tmp_path):
                     os.kill(pid, signal.SIGKILL)
                 except OSError:
                     pass
+
+
+# -- the router's lifecycle refusal and query split, against a stub shard --
+
+@pytest.fixture
+def router():
+    """make_router's handler at G=8 over two stub shards of 4 tenants
+    each: yields (router port, [(shard, method, path) seen by the
+    shards])."""
+    import http.server
+    import threading
+    from etcd_tpu_torch.tools.pool_serve import make_router
+    seen = []
+
+    def stub(idx):
+        class Shard(http.server.BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def _any(self):
+                seen.append((idx, self.command, self.path))
+                ln = int(self.headers.get("Content-Length") or 0)
+                self.rfile.read(ln)
+                body = b"{}"
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            do_GET = do_PUT = do_POST = do_DELETE = _any
+
+            def log_message(self, *a):
+                pass
+        return http.server.ThreadingHTTPServer(("127.0.0.1", 0), Shard)
+
+    servers = [stub(0), stub(1)]
+    servers.append(http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), make_router(
+            8, 4, [srv.server_address[1] for srv in servers])))
+    for srv in servers:
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        yield servers[-1].server_address[1], seen
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+
+
+def _status(port, method, path):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=b"" if method == "PUT" else None,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def test_router_refuses_tenant_lifecycle_on_the_bare_path(router):
+    """PUT and DELETE on the bare /tenants/{t} path (a shard's create and
+    remove, which would answer with the shard's local id) get 501 from
+    the router and never reach a shard; GET of it and the per-tenant
+    paths below it still route."""
+    port, seen = router
+    for method, path in (("PUT", "/tenants/3"), ("DELETE", "/tenants/5"),
+                         ("PUT", "/tenants/6/"), ("DELETE", "/tenants/1?x=1")):
+        assert _status(port, method, path) == 501, (method, path)
+    assert seen == []
+    assert _status(port, "GET", "/tenants/5") == 200
+    assert _status(port, "PUT", "/tenants/5/v2/keys/a") == 200
+    assert _status(port, "DELETE", "/tenants/6/v2/keys/a") == 200
+    assert seen == [(1, "GET", "/tenants/1/"),
+                    (1, "PUT", "/tenants/1/v2/keys/a"),
+                    (1, "DELETE", "/tenants/2/v2/keys/a")]
+
+
+def test_router_splits_the_query_off_the_tenant_id(router):
+    """/tenants/3?x=1 routes to tenant 3 (shard 0, local 3) with its
+    query kept; a query after the tenant's path rides along too."""
+    port, seen = router
+    assert _status(port, "GET", "/tenants/3?x=1") == 200
+    assert _status(port, "GET", "/tenants/6?recursive=true&x=1") == 200
+    assert _status(port, "GET", "/tenants/7/v2/keys/k?wait=false") == 200
+    assert _status(port, "GET", "/tenants/8?x=1") == 404
+    assert seen == [(0, "GET", "/tenants/3/?x=1"),
+                    (1, "GET", "/tenants/2/?recursive=true&x=1"),
+                    (1, "GET", "/tenants/3/v2/keys/k?wait=false")]
