@@ -16,10 +16,14 @@ exit) if any phase fails:
    exactly equal, through every instantiation (TE=4, TE=5, generic) at
    the round's call shapes (idx (G, P, 5), (G, P, 4) and, on the CLI's
    path, (G, P, 8)), a ragged row count, trailing shapes
-   (P, E) and (), W=8, a misaligned idx, and the blocks of the device
+   (P, E) and (), W=8, a misaligned idx, the blocks of the device
    mesh and of a collective rank (idx (25000, 5, 5), (25000, 5, 4),
-   (100000, 1, 5), (100000, 1, 4), (100000, 1, 8)). At the call and
-   block shapes,
+   (100000, 1, 5), (100000, 1, 4), (100000, 1, 8)), and the bench's
+   and frames_soak's other shapes (churn (100000, 7, 4) and
+   (100000, 7, 7); shallow_clients (8, 3, 8) and (8, 3, 3); latency
+   (12500, 5, 4/5), qread (8192, 5, 4/5), expiry_wave (4096, 5, 4/5);
+   frames_soak at W=8 (12500, 5, 5) and (12500, 5, 2)). At every shape
+   a path launches,
    over inputs that rotate through 8 copies (so L2 is cold, as in the
    round): CUDA-event times of the kernel, the plain version and one
    torch.gather beside the bound; the kernel's device time replayed from
@@ -27,12 +31,16 @@ exit) if any phase fails:
    launch floor (the wrapper's whole path with an empty kernel,
    `ring_resolve.launch_floor`) in both loops; host µs per call. The A/B
    of two commits' kernels is `etcd_tpu_torch/ops/ring_resolve_timing.py`.
-3. round: 40 full-width `step_routed_compact` rounds with the kernel and
-   with `resolve=ring_resolve_ref`, every output equal after every round,
-   and their twin on the multi-host engine's slots round (40 rounds of
-   `step_routed_slots_auto`, hops=1, max_ents 8: TE=5 at idx (G, P, P),
-   generic at (G, P, 8)); 30 small rounds on the card and on the CPU,
-   bit-equal.
+3. round: full-width rounds with the kernel and with
+   `resolve=ring_resolve_ref` in lockstep, every output equal after every
+   round, both call shapes' instantiations launched, at four shapes
+   (ROUNDS): the engine's `step_routed_compact` (hops=3); the multi-host
+   engine's slots round (`step_routed_slots_auto`, hops=1, max_ents 8:
+   TE=5 at idx (G, P, P), generic at (G, P, 8)); the bench's churn (7
+   peers, hops=1, 10% of leaders partitioned: TE=4 at (G, 7, 4), generic
+   at (G, 7, 7)); frames_soak's engines (12,500 groups, W=8, max_ents 2:
+   TE=5 at (12500, 5, 5), generic at (12500, 5, 2)); 30 small rounds on
+   the card and on the CPU, bit-equal.
 3a. raft_oracle: the card's round against the scalar Raft (the port's
    `raft/core.py`, etcd_tpu_torch/ops/oracle.py): `kernel.step` with the
    CUDA `ring_resolve` and `route_local` at G × P (W, E), faults (drops,
@@ -84,7 +92,8 @@ exit) if any phase fails:
    JSON line per leg: acked writes/s, ack p50/p99, rounds/s, seconds
    per step. Then the three legs again at 300 tenants (30 quorum GETs)
    with the C host code off in every process (ETCD_TPU_PYSTORE=1, no C
-   codecs, the ingress's `--no-native`).
+   codecs, the ingress's `--no-native`), after phase 13, beside
+   frames_soak (contended), as are 5a and 5b.
 5a. pool_serve: `python -m etcd_tpu_torch.tools.pool_serve`, two shard
    processes of 50,000 groups each on the card (P, W, fsync on) behind
    one router: boot seconds per shard, 1,000 PUTs and 100 quorum GETs
@@ -117,15 +126,18 @@ exit) if any phase fails:
    W=8, max_ents 2 and fsync off; a client's attempt 20 s, not 2:
    SOAK_ATTEMPT_S): every group led; every engine alive and a write to
    each of 200 fixed groups (0 and G-1 among them) acked after each
-   step, within the soak's deadlines; twice a stop() of one engine,
-   writes through the survivors, its restart on its own data dir; one
+   step, within the soak's deadlines; a stop() of one engine (once,
+   SOAK_KILL_CYCLES, of the soak's two: depth), writes through the
+   survivors, its restart on its own data dir; one
    pair's frames blocked both ways, writes through a third engine, the
    heal. Logged with the card's name and power limit: seconds to
    re-elect after each stop, until the restarted engine serves, to serve
    through the partition, the most attempts a step's write took, and
-   ring_resolve's launches over the leg by instantiation. The leg runs in a process of its own, killed past
-   SOAK_LIMIT_S, after multihost_collective (9) and beside phases 7, 8
-   and 10-13, whose numbers are taken beside it (contended).
+   ring_resolve's launches over the leg by instantiation. The leg runs
+   in a process of its own, killed past SOAK_LIMIT_S, after
+   multihost_collective (9) and beside phases 7, 8 and 10-13, then 5's
+   C-off legs, 5a and 5b, whose numbers are taken beside it
+   (contended).
 7. mesh_round: the bench shape's round (hops=3, E=4) for 16 rounds with
    random proposals and 5% drops, unsharded, on a 4 x 1 mesh (groups
    axis) and on a 1 x 5 mesh (peers axis), every cell on the one card:
@@ -191,11 +203,12 @@ exit) if any phase fails:
    qread 8,192, expiry_wave 4,096 × 16 TTL keys; 100,000 watchers;
    10,000 depth-1 connections, 8 tenants, 2,000 hub watchers; the
    direct leg 3,000; the kernel scenarios' measured rounds cut to 100
-   from 300, depth), its ten scenarios as five invocations in two
-   waves, the host-bound qread, engine and shallow_clients at once, then
-   latency and the kernel scenarios (BENCH_WAVES: disjoint
-   BENCH_SCENARIO sets, each led by uniform; one after another they take
-   ~650 s; shallow_clients' measured legs 3 s): every scenario in its
+   from 300, the host-bound legs' floor to 3 rounds from 10, depth),
+   its ten scenarios as five invocations in three lanes run at once:
+   qread then the kernel scenarios, engine, shallow_clients then
+   latency (BENCH_LANES: disjoint BENCH_SCENARIO sets, each led by
+   uniform; one after another they take ~650 s; shallow_clients'
+   measured legs 3 s): every scenario in its
    line at those widths on platform "gpu", and its invariants (uniform,
    zipf, lag and churn commit; lag partitions G/20 groups; churn's
    liveness floor, every group led after the heal; engine's and
@@ -327,13 +340,43 @@ def bound_ms(ring, idx, last) -> tuple:
     return nbytes / HBM_BYTES_PER_S * 1e3, nbytes, streamed + 32 * sectors
 
 
+# phase_kernel's cases: (label, trailing idx dims, groups, W, peer
+# columns). The engine's shapes and edge cases; the blocks of the device
+# mesh (a groups cell of 4 x 1, a peers cell of 1 x 5) and of a
+# collective rank; then the bench's other shapes (BENCH_WIDTHS): churn at
+# 7 peers, shallow_clients' 8 tenants of 3 peers at max_ents 8, latency,
+# qread and expiry_wave, and frames_soak's engines (W=8, max_ents 2).
+KERNEL_CASES = (
+    ("send_assembly", (P,), G, W, P), ("conflict_scan", (E,), G, W, P),
+    ("cli_conflict_scan", (CLI_E,), G, W, P),
+    ("ragged_rows", (P,), 99_999, W, P), ("PxE", (P, E), G, W, P),
+    ("empty_trailing", (), G, W, P), ("W8", (P,), G, 8, P),
+    ("misaligned_idx", (E,), G, W, P),
+    ("mesh_groups_send", (P,), G // 4, W, P),
+    ("mesh_groups_conflict", (E,), G // 4, W, P),
+    ("mesh_peers_send", (P,), G, W, 1),
+    ("mesh_peers_conflict", (E,), G, W, 1),
+    ("collective_conflict", (CLI_E,), G, W, 1),
+    ("churn_send", (7,), G, W, 7), ("churn_conflict", (E,), G, W, 7),
+    ("shallow_send", (3,), 8, W, 3), ("shallow_conflict", (CLI_E,), 8, W, 3),
+    ("latency_send", (P,), 12_500, W, P),
+    ("latency_conflict", (E,), 12_500, W, P),
+    ("qread_send", (P,), 8_192, W, P), ("qread_conflict", (E,), 8_192, W, P),
+    ("expiry_send", (P,), 4_096, W, P),
+    ("expiry_conflict", (E,), 4_096, W, P),
+    ("soak_send", (P,), 12_500, 8, P), ("soak_conflict", (2,), 12_500, 8, P))
+# Cases held for equality only: the rest are the shapes paths launch, timed.
+KERNEL_EDGE_CASES = {"ragged_rows", "PxE", "empty_trailing", "W8",
+                     "misaligned_idx"}
+
+
 def phase_kernel(dev):
     """Kernel vs plain on the card: every instantiation exactly equal to
-    `ring_resolve_ref` (both main-path shapes, a ragged row count, (P, E),
-    (), W=8, a misaligned idx); at both main-path shapes the kernel's,
-    the plain version's and torch.gather's times beside the bound, the
-    launch floor and host µs per call. Returns the kernel entry of the
-    report (times at the send-assembly shape T=(P,))."""
+    `ring_resolve_ref` at every case; at every launched shape (all cases
+    but KERNEL_EDGE_CASES) the kernel's, the plain version's and
+    torch.gather's times beside the bound, the launch floor and host µs
+    per call. Returns the kernel entry of the report (times at the first
+    case, send assembly T=(P,))."""
     import torch
     from etcd_tpu_torch.ops import ring_resolve as rr
     from etcd_tpu_torch.ops.ring_resolve_timing import (
@@ -343,25 +386,10 @@ def phase_kernel(dev):
     resolve, ref = rr.ring_resolve, rr.ring_resolve_ref
     counts0 = dict(resolve.launches_by_variant)
     max_err = 0
-    # (label, trailing idx dims, groups, W, peer columns): the engine's
-    # shapes, edge cases, then the blocks of the device mesh (a groups
-    # cell of 4 x 1, a peers cell of 1 x 5) and of a collective rank.
-    cases = (("send_assembly", (P,), G, W, P),
-             ("conflict_scan", (E,), G, W, P),
-             ("cli_conflict_scan", (CLI_E,), G, W, P),
-             ("ragged_rows", (P,), 99_999, W, P), ("PxE", (P, E), G, W, P),
-             ("empty_trailing", (), G, W, P), ("W8", (P,), G, 8, P),
-             ("misaligned_idx", (E,), G, W, P),
-             ("mesh_groups_send", (P,), G // 4, W, P),
-             ("mesh_groups_conflict", (E,), G // 4, W, P),
-             ("mesh_peers_send", (P,), G, W, 1),
-             ("mesh_peers_conflict", (E,), G, W, 1),
-             ("collective_conflict", (CLI_E,), G, W, 1))
     inputs = {}
-    for label, trailing, groups, w, peers in cases:
-        ring, idx, last = (torch.from_numpy(
-            np.ascontiguousarray(a[:, :peers])).to(dev) for a in
-            resolve_inputs(rng, trailing, groups, w))
+    for label, trailing, groups, w, peers in KERNEL_CASES:
+        ring, idx, last = (torch.from_numpy(a).to(dev) for a in
+                           resolve_inputs(rng, trailing, groups, w, peers))
         if label == "misaligned_idx":   # 4 bytes past a 16-byte boundary
             buf = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
             buf[1:] = idx.reshape(-1)
@@ -379,15 +407,13 @@ def phase_kernel(dev):
     if not all(by_variant.values()):
         raise AssertionError(f"an instantiation was not held against the "
                              f"plain version: {by_variant}")
-    log("kernel_equal", t0, cases=[c[0] for c in cases], equal=True,
+    log("kernel_equal", t0, cases=list(inputs), equal=True,
         max_abs_err=max_err, launches_by_variant=by_variant)
 
     entry = None
-    for label in ("send_assembly", "conflict_scan", "cli_conflict_scan",
-                  "mesh_groups_send", "mesh_groups_conflict",
-                  "mesh_peers_send", "mesh_peers_conflict",
-                  "collective_conflict"):
-        args = inputs[label]
+    for label, args in inputs.items():
+        if label in KERNEL_EDGE_CASES:
+            continue
         ring, idx, last = args
         g, p, w = ring.shape
         b_ms, nbytes, sector_bytes = bound_ms(ring, idx, last)
@@ -440,99 +466,90 @@ def _states_equal(a, b) -> bool:
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def phase_round(dev, groups=G, rounds=40):
-    """Full-width rounds with the kernel and with the plain resolve, in
-    lockstep, every output equal after every round."""
-    import torch
-    from etcd_tpu_torch.ops import kernel
-    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
-    from etcd_tpu_torch.ops.state import KernelConfig, LEADER, init_state
-    t0 = time.perf_counter()
-    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=E,
-                       heartbeat_tick=3)
-    st_k = init_state(cfg, stagger=True, device=dev)
-    st_p = init_state(cfg, stagger=True, device=dev)
-    ib_k = torch.zeros((groups, P, P, cfg.fields), dtype=torch.int32,
-                       device=dev)
-    ib_p = ib_k.clone()
-    launches0 = ring_resolve.launches
-    t_kernel = 0.0
-    for r in range(rounds):
-        lead = (st_k.state == LEADER) & st_k.peer_mask
-        has = lead.any(dim=1)
-        pc = torch.where(has, E, 0).to(torch.int32)
-        ps = kernel._first_true(lead, dim=1)
-        _sync(dev)
-        t1 = time.perf_counter()
-        st_k, ib_k, fl_k, nh_k = kernel.step_routed_compact(
-            cfg, st_k, ib_k, pc, ps, True, None, 3)
-        _sync(dev)
-        t_kernel += time.perf_counter() - t1
-        st_p, ib_p, fl_p, nh_p = kernel.step_routed_compact(
-            cfg, st_p, ib_p, pc, ps, True, None, 3, resolve=ring_resolve_ref)
-        if not (_states_equal(st_k, st_p) and torch.equal(ib_k, ib_p)
-                and torch.equal(fl_k, fl_p) and torch.equal(nh_k, nh_p)):
-            raise AssertionError(f"kernel round != plain round at {r}")
-    led = bool(((st_k.state == LEADER) & st_k.peer_mask).any(dim=1).all())
-    commits = int(st_k.commit.amax(dim=1).sum())
-    if not led or commits <= 0:
-        raise AssertionError(f"round: led={led} commits={commits}")
-    log("round", t0, groups=groups, rounds=rounds, equal_to_plain=True,
-        ms_per_round=t_kernel / rounds * 1e3,
-        committed_entries_per_s=commits / t_kernel,
-        launches=ring_resolve.launches - launches0)
-    if torch.device(dev).type == "cuda":
-        round_profile(cfg, st_k, ib_k, pc, ps)
-    round_slots(dev, groups, rounds)
+# phase_round's locksteps: name -> (KernelConfig fields, hops, slots).
+# slots: the multi-host engine's step_routed_slots_auto, E entries at
+# each leader slot; else step_routed_compact, E entries at each group's
+# first leader slot, as the engine and the bench's rounds propose.
+ROUNDS = {
+    "round": (dict(groups=G, peers=P, window=W, max_ents=E), 3, False),
+    # the multi-host ranks (either plane) at the CLI's max_ents
+    "round_slots": (dict(groups=G, peers=P, window=W, max_ents=CLI_E), 1,
+                    True),
+    # the bench's churn: 7 peers, hops 1, 10% of leaders partitioned
+    "round_churn": (dict(groups=G, peers=7, window=W, max_ents=E), 1, False),
+    # frames_soak's engines (SOAK_GROUPS; W=8, max_ents 2)
+    "round_frames_soak": (dict(groups=12_500, peers=P, window=8,
+                               max_ents=2), 1, True),
+}
+CHURN_AT = 8     # round_churn partitions once every group has led (bench.boot)
 
 
-def round_slots(dev, groups=G, rounds=40):
-    """The multi-host engine's slots round (`step_routed_slots_auto`,
-    hops=1, per-slot counts at the leader slots) at the frames plane's
-    shape (max_ents 8, so the conflict scan takes the generic
-    instantiation at idx (G, P, 8) and send assembly TE=5 at (G, P, P)),
-    with the kernel and with the plain resolve in lockstep, every output
-    equal after every round."""
+def phase_round(dev, name="round", groups=None, rounds=40):
+    """Full-width rounds at ROUNDS[name] with the kernel and with the
+    plain resolve, in lockstep, every output equal after every round; on
+    the card, the instantiations of both call shapes (send assembly
+    (G, P, P), conflict scan (G, P, E)) launched. round_churn partitions
+    the leaders of 10% of groups at round CHURN_AT, as the bench's churn
+    does (`bench.churn_mask`). "round" also profiles its steady state on
+    the card."""
     import torch
+    from etcd_tpu_torch import bench
     from etcd_tpu_torch.ops import kernel
-    from etcd_tpu_torch.ops.ring_resolve import ring_resolve, ring_resolve_ref
+    from etcd_tpu_torch.ops.ring_resolve import (
+        ring_resolve, ring_resolve_ref, stage_shape)
     from etcd_tpu_torch.ops.state import KernelConfig, LEADER, init_state
     t0 = time.perf_counter()
-    cfg = KernelConfig(groups=groups, peers=P, window=W, max_ents=CLI_E,
+    fields, hops, slots = ROUNDS[name]
+    cfg = KernelConfig(**dict(fields, groups=groups or fields["groups"]),
                        heartbeat_tick=3)
+    g, p, e = cfg.groups, cfg.peers, cfg.max_ents
+    step = (kernel.step_routed_slots_auto if slots
+            else kernel.step_routed_compact)
     st_k = init_state(cfg, stagger=True, device=dev)
     st_p = init_state(cfg, stagger=True, device=dev)
-    ib_k = torch.zeros((groups, P, P, cfg.fields), dtype=torch.int32,
-                       device=dev)
+    ib_k = torch.zeros((g, p, p, cfg.fields), dtype=torch.int32, device=dev)
     ib_p = ib_k.clone()
     by0 = dict(ring_resolve.launches_by_variant)
+    drop = None
     t_kernel = 0.0
     for r in range(rounds):
         lead = (st_k.state == LEADER) & st_k.peer_mask
-        cnt = torch.where(lead, CLI_E, 0).to(torch.int32)
+        if slots:
+            props = (torch.where(lead, e, 0).to(torch.int32),)
+        else:
+            props = (torch.where(lead.any(dim=1), e, 0).to(torch.int32),
+                     kernel._first_true(lead, dim=1))
+        if name == "round_churn" and r == CHURN_AT:
+            m, _ = bench.churn_mask(np.random.RandomState(SEED), g, p,
+                                    bench.current_slots(st_k))
+            drop = torch.from_numpy(m).to(dev)
         _sync(dev)
         t1 = time.perf_counter()
-        st_k, ib_k = kernel.step_routed_slots_auto(cfg, st_k, ib_k, cnt,
-                                                   True)
+        out_k = step(cfg, st_k, ib_k, *props, True, drop, hops)
         _sync(dev)
         t_kernel += time.perf_counter() - t1
-        st_p, ib_p = kernel.step_routed_slots_auto(
-            cfg, st_p, ib_p, cnt, True, resolve=ring_resolve_ref)
-        if not (_states_equal(st_k, st_p) and torch.equal(ib_k, ib_p)):
-            raise AssertionError(f"kernel slots round != plain at {r}")
+        out_p = step(cfg, st_p, ib_p, *props, True, drop, hops,
+                     resolve=ring_resolve_ref)
+        (st_k, ib_k), (st_p, ib_p) = out_k[:2], out_p[:2]
+        if not (_states_equal(st_k, st_p) and _states_equal(out_k[1:],
+                                                            out_p[1:])):
+            raise AssertionError(f"{name}: kernel round != plain at {r}")
     led = bool(((st_k.state == LEADER) & st_k.peer_mask).any(dim=1).all())
     commits = int(st_k.commit.amax(dim=1).sum())
     if not led or commits <= 0:
-        raise AssertionError(f"round_slots: led={led} commits={commits}")
+        raise AssertionError(f"{name}: led={led} commits={commits}")
     by = {k: ring_resolve.launches_by_variant[k] - by0[k] for k in by0}
-    if torch.device(dev).type == "cuda" and not (by["te5"]
-                                                 and by["generic"]):
-        raise AssertionError(f"round_slots: kernels launched {by}")
-    log("round_slots", t0, groups=groups, rounds=rounds, hops=1,
-        max_ents=CLI_E, equal_to_plain=True,
+    want = {stage_shape(p)[0], stage_shape(e)[0]}
+    if torch.device(dev).type == "cuda" and not all(by[v] for v in want):
+        raise AssertionError(f"{name}: {sorted(want)} not all launched: "
+                             f"{by}")
+    log(name, t0, groups=g, peers=p, window=cfg.window, max_ents=e,
+        hops=hops, rounds=rounds, equal_to_plain=True,
         ms_per_round=t_kernel / rounds * 1e3,
         committed_entries_per_s=commits / t_kernel,
         launches=sum(by.values()), launches_by_variant=by)
+    if name == "round" and torch.device(dev).type == "cuda":
+        round_profile(cfg, st_k, ib_k, *props)
 
 
 def round_profile(cfg, st, inbox, pc, ps, rounds=5):
@@ -2022,6 +2039,7 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
             def put_through(g):
                 r = survivors[g % len(survivors)]
                 deadline = time.monotonic() + 180
+                last = None
                 while True:
                     try:
                         st, body = _http(
@@ -2031,10 +2049,14 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
                             first_ack[g] = time.perf_counter()
                             acked[(g, "killed")] = (f"k{g}", r)
                             return
-                    except OSError:
-                        pass
+                        last = (st, body)
+                    except OSError as e:
+                        last = repr(e)
                     if time.monotonic() > deadline:
-                        raise AssertionError(f"g={g} never acked at {r}")
+                        raise AssertionError(
+                            f"g={g} never acked at {r} (last answer "
+                            f"{last}); status by rank "
+                            f"{_statuses(bases, survivors, g)}")
                     time.sleep(0.05)
 
             def kill():
@@ -2163,8 +2185,11 @@ SOAK_ATTEMPT_S = 20.0
 # once (188 of 200 writes acked in the 150 s after the first restart;
 # PERF.md §7).
 SOAK_GROUPS = 12_500
-# The leg's limit: it took 295 s at 12,500 groups and 381 s at 100,000
-# beside phases 7-13 on an H100 (PERF.md §6).
+# Depth: one stop-and-restart cycle of the soak's two (the second took
+# 77-100 s more and checks nothing the first does not).
+SOAK_KILL_CYCLES = 1
+# The leg's limit: with two cycles it took 229-309 s at 12,500 groups
+# and 381 s at 100,000 beside phases 7-13 on an H100 (PERF.md §6).
 SOAK_LIMIT_S = 600
 
 
@@ -2176,8 +2201,9 @@ def phase_frames_soak(dev, groups=SOAK_GROUPS, hosts=NHOSTS,
     settings (W=8, max_ents 2, fsync off, 5 ms between rounds,
     request_timeout 6 s), the mailbox, proposals and payloads on frames
     between them. Every group led (90 s), then tools/frames_soak.py's
-    schedule (seed 11: every engine serving; twice a stop(), writes
-    through the survivors, the restart; a pair partitioned and healed),
+    schedule (seed 11: every engine serving; SOAK_KILL_CYCLES times a
+    stop(), writes through the survivors, the restart; a pair
+    partitioned and healed),
     writing one key to each of `sample` fixed groups (0 and G-1 among
     them) from 100 threads: the depth cut (the soak writes every one of
     its 6 groups). Logs per step: seconds to the step's last ack; after
@@ -2308,7 +2334,8 @@ def phase_frames_soak(dev, groups=SOAK_GROUPS, hosts=NHOSTS,
     try:
         boot_s = until(lambda: led(engines), 90, "every group led")
         frames_soak.run(engines, mk, gs, attempt_s=SOAK_ATTEMPT_S,
-                        threads=100, on_step=on_step)
+                        threads=100, on_step=on_step,
+                        kill_cycles=SOAK_KILL_CYCLES)
     finally:
         for e in engines:
             try:
@@ -2323,23 +2350,30 @@ def phase_frames_soak(dev, groups=SOAK_GROUPS, hosts=NHOSTS,
 
 
 def phase_frames_soak_process(dev, groups=SOAK_GROUPS,
-                              timeout_s=SOAK_LIMIT_S):
+                              timeout_s=SOAK_LIMIT_S, hold=None):
     """phase_frames_soak in a fresh interpreter of its own, each of its
     lines passed on when the next comes, killed past `timeout_s` whether
     it prints or not. The five engines share one GIL; in the smoke's own
     process, after every earlier phase, their rounds took ~25% longer
     (990 against 705-830 ms at 12,500 groups, 1,017-1,039 against 765-779
     at 100,000) and a restarted engine missed the soak's 150 s deadline
-    at both sizes (PERF.md §6). Returns the leg's ring_resolve launches,
-    in all and by instantiation, from the child's last line."""
+    at both sizes (PERF.md §6). With `hold` (a threading.Event) the
+    child, its result printed, keeps its context on the card until
+    `hold` is set: the phases beside it tell their processes on the card
+    by the count of compute apps, which the child's exit would change
+    under them. Returns the leg's ring_resolve launches, in all and by
+    instantiation, from the child's result line."""
     import queue
-    code = ("import json, chip_smoke, torch\n"
+    code = ("import json, sys, chip_smoke, torch\n"
             "n, by = chip_smoke.phase_frames_soak("
             f"torch.device({str(dev)!r}), groups={groups})\n"
-            "print(json.dumps({'launches': n, 'by_variant': by}))\n")
+            "print(json.dumps({'launches': n, 'by_variant': by}),"
+            " flush=True)\n"
+            "sys.stdin.read()\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
-                            stdout=subprocess.PIPE, text=True)
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            text=True)
     lines = queue.Queue()
 
     def read():
@@ -2362,8 +2396,14 @@ def phase_frames_soak_process(dev, groups=SOAK_GROUPS,
             if last:
                 print(last, end="", flush=True)
             last = line
+            if line.startswith('{"launches"'):
+                if hold is not None:
+                    hold.wait(max(0.0, t_end - time.monotonic()))
+                proc.stdin.close()
         rc = proc.wait(timeout=max(1.0, t_end - time.monotonic()))
     finally:
+        if not proc.stdin.closed:
+            proc.stdin.close()
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -2371,6 +2411,20 @@ def phase_frames_soak_process(dev, groups=SOAK_GROUPS,
         raise AssertionError(f"frames_soak: rc={rc}; last line {last!r}")
     out = json.loads(last)
     return out["launches"], out["by_variant"]
+
+
+def _statuses(bases, ranks, g) -> dict:
+    """Group g's consensus status (lead, term, commit, applied) on each
+    of `ranks`, or the error that asking met: a failure's evidence."""
+    out = {}
+    for r in ranks:
+        try:
+            st = _http("GET", f"{bases[r]}/tenants/{g}/status", timeout=10)[1]
+            out[r] = {k: st.get(k) for k in ("lead", "term", "commit",
+                                              "applied")}
+        except Exception as e:  # noqa: BLE001 — evidence, not a check
+            out[r] = repr(e)
+    return out
 
 
 def _gloo_cuda_probe(dev) -> str:
@@ -3543,28 +3597,36 @@ BENCH_WIDTHS = {"groups": G, "peers": P, "churn_peers": 7,
                 "qread_groups": 8_192, "expiry_groups": 4_096,
                 "ttl_keys": 4_096 * 16, "watchers": 100_000,
                 "conns": 10_000, "tenants": 8, "hub_watchers": 2_000}
-# The bench's invocations: waves run one after another, the
-# (BENCH_SCENARIO, BENCH_BUDGET_S, more environment) of a wave at once.
-# At its widths the ten scenarios take ~650 s one after another on an
-# H100 host (ten host-bound rounds are a floor: qread ~185 s, engine
-# ~115 s; shallow_clients ~135 s with 3 s legs; PERF.md), which with the
-# phases before it would pass the script's time limit. The first wave
-# holds the three host-bound ones, each a few cores of the host and
-# little of the card; the kernel scenarios, which keep the card busy,
-# wait for the second (four at once with them overran). Every set
-# starts with uniform (4 s), whose result is a line's headline; the
-# others keep every key. zipf, lag and churn stay in one set, in order:
-# they draw from one generator. A budget past a set's floors costs no
-# time where its scenarios' shares stay under their floors. The measured
-# legs of shallow_clients are cut to 3 s (15 by default): its depth, not
-# its width.
-BENCH_WAVES = ((("uniform,qread", 400, {}),
-                ("uniform,engine", 300, {}),
-                ("uniform,shallow_clients", 350,
-                 {"BENCH_SHALLOW_LEG_S": "3"})),
-               (("uniform,latency", 80, {}),
+# The bench's invocations: lanes run at once, the (BENCH_SCENARIO,
+# BENCH_BUDGET_S, more environment) of a lane one after another. At its
+# widths the ten scenarios take ~650 s one after another on an H100 host
+# (host-bound rounds are a floor: qread ~185 s and engine ~115 s at ten
+# a leg; shallow_clients ~135 s with 3 s legs; PERF.md), which with the
+# phases before it would pass the script's time limit. Each lane opens
+# with one of the three host-bound ones, each a few cores of the host
+# and little of the card, so at most three invocations run at once (four
+# overran); the kernel scenarios, which keep the card busy, follow
+# qread (~150 s), latency follows shallow_clients (~185 s), and the
+# engine runs alone in its lane. Every set starts with uniform (4 s),
+# whose result is a line's headline; the others keep every key. zipf,
+# lag and churn stay in one set, in order: they draw from one generator.
+# Depth is cut: the host-bound legs to 3 rounds (BENCH_MIN_ROUNDS, 10 by
+# default), shallow_clients' measured legs to 3 s (15). A child is
+# killed 15 s past its budget. The engine at 100,000 groups runs past
+# its share of the budget by its fixed rounds (boot, warm-up, drain, the
+# paced phase's tail): 149-185 s here, 288 s on a slower host, where a
+# 300 s budget ended it; shallow_clients' legs are fixed (125-154 s).
+# Both budgets are 420 s: on a host loaded to 1.4-2x (PERF.md §6) both
+# passed 365-375 s. The engine's larger share of it still ends before
+# shallow_clients' lane; the others' take no time from a larger one.
+BENCH_MIN_ROUNDS = 3
+BENCH_LANES = ((("uniform,qread", 300, {}),
                 ("uniform,watch_storm,expiry_wave,zipf,lag,churn", 120,
-                 {})))
+                 {})),
+               (("uniform,engine", 420, {}),),
+               (("uniform,shallow_clients", 420,
+                 {"BENCH_SHALLOW_LEG_S": "3"}),
+                ("uniform,latency", 80, {})))
 
 
 def _bench_widths(metric, results) -> dict:
@@ -3582,13 +3644,14 @@ def _bench_widths(metric, results) -> dict:
             "hub_watchers": sh["hub_fanout"]}
 
 
-def phase_bench(dev, waves=BENCH_WAVES, env=None,
+def phase_bench(dev, lanes=BENCH_LANES, env=None,
                 widths=BENCH_WIDTHS) -> dict:
     """`python -m etcd_tpu_torch.bench` as a user runs it, at its
     defaults on the card: one invocation per (BENCH_SCENARIO,
-    BENCH_BUDGET_S, more environment) of `waves`, the invocations of a
-    wave at once (so their numbers are contended; PERF.md has each
-    scenario's alone), together the ten scenarios. `env` adds
+    BENCH_BUDGET_S, more environment) of `lanes`, the lanes at once and
+    a lane's invocations one after another (so their numbers are
+    contended; PERF.md has each scenario's alone), together the ten
+    scenarios. `env` adds
     variables, e.g. BENCH_PLATFORM=cpu and small sizes to rehearse on
     the CPU with widths=None. Fails unless each exits 0 with its
     scenarios in its last line (a scenario skipped for budget fails),
@@ -3603,32 +3666,42 @@ def phase_bench(dev, waves=BENCH_WAVES, env=None,
     shape (TE=4, TE=5) must have launched. Returns ring_resolve's
     launches by scenario, summed over the invocations (shallow_clients':
     its engine process's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import torch
     from etcd_tpu_torch import bench
     t0 = time.perf_counter()
     on_card = torch.device(dev).type == "cuda"
-    runs = [r for wave in waves for r in wave]
-    procs, walls = [], []
+    runs = [r for lane in lanes for r in lane]
+    starts = [0]
+    for lane in lanes:
+        starts.append(starts[-1] + len(lane))
+    procs, walls = [None] * len(runs), [None] * len(runs)
     with tempfile.TemporaryDirectory(prefix="smoke-bench-") as d:
+
+        def run_lane(i):
+            for k in range(starts[i], starts[i + 1]):
+                scenarios, budget_s, more = runs[k]
+                with open(os.path.join(d, f"{k}.out"), "w") as out, \
+                        open(os.path.join(d, f"{k}.err"), "w") as err:
+                    procs[k] = subprocess.Popen(
+                        [sys.executable, "-m", "etcd_tpu_torch.bench"],
+                        cwd=REPO, stdout=out, stderr=err,
+                        env=dict(os.environ, BENCH_SCENARIO=scenarios,
+                                 BENCH_BUDGET_S=str(budget_s),
+                                 BENCH_MIN_ROUNDS=str(BENCH_MIN_ROUNDS),
+                                 **more, **(env or {})))
+                procs[k].wait(timeout=budget_s + 120)
+                walls[k] = round(time.perf_counter() - t0, 1)
+
         try:
-            for wave in waves:
-                first = len(procs)
-                for k, (scenarios, budget_s, more) in enumerate(wave,
-                                                                first):
-                    with open(os.path.join(d, f"{k}.out"), "w") as out, \
-                            open(os.path.join(d, f"{k}.err"), "w") as err:
-                        procs.append(subprocess.Popen(
-                            [sys.executable, "-m", "etcd_tpu_torch.bench"],
-                            cwd=REPO, stdout=out, stderr=err,
-                            env=dict(os.environ, BENCH_SCENARIO=scenarios,
-                                     BENCH_BUDGET_S=str(budget_s),
-                                     **more, **(env or {}))))
-                for p in procs[first:]:
-                    p.wait(timeout=max(r[1] for r in wave) + 120)
-                    walls.append(round(time.perf_counter() - t0, 1))
+            with ThreadPoolExecutor(len(lanes)) as pool:
+                for f in [pool.submit(run_lane, i)
+                          for i in range(len(lanes))]:
+                    f.result()
         finally:
             for p in procs:
-                if p.poll() is None:
+                if p is not None and p.poll() is None:
                     p.kill()
                     p.wait()
         outs, failed = [], []
@@ -3708,7 +3781,7 @@ def phase_bench(dev, waves=BENCH_WAVES, env=None,
     if on_card and not (total["te4"] and total["te5"]):
         raise AssertionError(f"bench: the TE=4 and TE=5 kernels were not "
                              f"both launched: {launches}")
-    log("bench", t0, waves=[[list(r) for r in w] for w in waves],
+    log("bench", t0, lanes=[[list(r) for r in lane] for lane in lanes],
         walls_s=walls,
         device=line["device"],
         power_limit_w=line["power_limit_w"], metric=line["metric"],
@@ -3779,9 +3852,12 @@ def main() -> int:
     # phase bench (PERF.md §4; no width is cut): the C-off runs at 300
     # tenants, latency_hops at two sizes, 3 soak schedules, 20 rounds of
     # phase round, mesh_round 6 rounds, the suite's compact leg 20
-    # rounds, and 300 tenants with 30 quorum GETs on every path but the
-    # engine's main one (500 and 50 on the HTTP front's).
-    phase_round(dev, rounds=20)
+    # rounds, 300 tenants with 30 quorum GETs on every path but the
+    # engine's main one (500 and 50 on the HTTP front's), one of
+    # frames_soak's two stop-and-restart cycles and the bench's
+    # host-bound legs at 3 rounds.
+    for name in ROUNDS:
+        phase_round(dev, name, rounds=20)
     phase_small_card_vs_cpu(dev)
     oracle_launches, oracle_by_variant = phase_raft_oracle(dev)
     launches, by_variant = phase_engine(dev)
@@ -3801,35 +3877,46 @@ def main() -> int:
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
                              f"{http_by_variant}")
-    http_off_launches, http_off_by_variant, http_off_restart = \
-        phase_http_front(dev, native=False, tenants=300, quorum_gets=30)
-    pool_stops = phase_pool_serve(dev, tenants=300, quorum_gets=30)
-    phase_tsan()
     mh_launches, mh_by_variant, mh_lines = phase_multihost_frames(
         dev, tenants=200)
     mc_launches, mc_by_variant, mc_lines = phase_multihost_collective(
         dev, tenants=300, quorum_gets=30)
-    # frames_soak (~300 s in a process of its own, its engines a core or
-    # two) runs beside the phases up to soak_kernel,
-    # which hold the card and the host lightly: the script stays inside
-    # its time limit. Their numbers are taken beside it (contended).
+    # frames_soak (~200 s in a process of its own, its engines a core or
+    # two) runs beside the phases from mesh_round on, which hold the card
+    # and the host lightly, and beside the C-off HTTP front, pool_serve
+    # and tsan after them (without these the leg ran ~65 s past the
+    # others): the script stays inside its time limit. Their numbers are
+    # taken beside it (contended). Its process keeps its context on the
+    # card until they end (`hold`), so that the count of compute apps
+    # they check is not changed by its exit.
+    soak_hold = threading.Event()
     with ThreadPoolExecutor(1) as beside:
-        soak_f = beside.submit(phase_frames_soak_process, dev)
-        mesh_by_layout = phase_mesh_round(dev, rounds=6)
-        from etcd_tpu_torch.parallel.mesh import make_mesh
-        em_launches, em_by_variant = phase_engine(
-            dev, mesh=make_mesh([dev] * 4, peers_axis=1),
-            name="engine_mesh", tenants=300, quorum_gets=30)
-        if not (em_by_variant["te4"] and em_by_variant["te5"]):
-            raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
-                                 f"launched on the mesh engine's path: "
-                                 f"{em_by_variant}")
-        phase_member_cluster(dev, writes=300, quorum_gets=30)
-        tools_launches, tools_by_variant = phase_tools_engine(
-            dev, tenants=300, proxy_writes=100)
-        hops_launches, hops_by_variant = phase_latency_hops(
-            dev, groups=(12_500, G))
-        soak_launches, soak_by_variant = phase_soak_kernel(dev, schedules=3)
+        soak_f = beside.submit(phase_frames_soak_process, dev,
+                               hold=soak_hold)
+        try:
+            mesh_by_layout = phase_mesh_round(dev, rounds=6)
+            from etcd_tpu_torch.parallel.mesh import make_mesh
+            em_launches, em_by_variant = phase_engine(
+                dev, mesh=make_mesh([dev] * 4, peers_axis=1),
+                name="engine_mesh", tenants=300, quorum_gets=30)
+            if not (em_by_variant["te4"] and em_by_variant["te5"]):
+                raise AssertionError(f"the TE=4 and TE=5 kernels were not "
+                                     f"both launched on the mesh engine's "
+                                     f"path: {em_by_variant}")
+            phase_member_cluster(dev, writes=300, quorum_gets=30)
+            tools_launches, tools_by_variant = phase_tools_engine(
+                dev, tenants=300, proxy_writes=100)
+            hops_launches, hops_by_variant = phase_latency_hops(
+                dev, groups=(12_500, G))
+            soak_launches, soak_by_variant = phase_soak_kernel(
+                dev, schedules=3)
+            http_off_launches, http_off_by_variant, http_off_restart = \
+                phase_http_front(dev, native=False, tenants=300,
+                                 quorum_gets=30)
+            pool_stops = phase_pool_serve(dev, tenants=300, quorum_gets=30)
+            phase_tsan()
+        finally:
+            soak_hold.set()
         soak_f_launches, soak_f_by_variant = soak_f.result()
     if not (soak_f_by_variant["te5"] and soak_f_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "

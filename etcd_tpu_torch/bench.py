@@ -100,7 +100,9 @@ BENCH_EXPIRY_GROUPS, BENCH_TTL_KEYS, BENCH_WATCHERS, BENCH_WATCH_KEYS,
 BENCH_CHURN_PEERS (7), BENCH_APPLIER_SHARDS, BENCH_WAL_SHARDS,
 BENCH_WAL_PIPELINE, BENCH_OBS_AB, BENCH_SHALLOW_CONNS,
 BENCH_SHALLOW_TENANTS, BENCH_HUB_WATCHERS, BENCH_SHALLOW_LEG_S,
-BENCH_KILL_ORPHANS.
+BENCH_MIN_ROUNDS (10: the fewest rounds of each measured leg of the
+host-bound engine, latency and qread scenarios, past their share of the
+budget), BENCH_KILL_ORPHANS.
 """
 from __future__ import annotations
 
@@ -122,6 +124,9 @@ from etcd_tpu_torch.tools.launch import child_env, free_ports, require_device
 from etcd_tpu_torch.utils.metrics import REGISTRY
 
 BASELINE_WRITES_PER_SEC = 4157.0
+# The fewest measured rounds of each leg of the host-bound scenarios
+# (engine, latency, qread), however short their share of the budget.
+MIN_ROUNDS = int(os.environ.get("BENCH_MIN_ROUNDS", 10))
 # The stderr prefix of each scenario's JSON line (launches, engine acks).
 SCENARIO_LINE = "bench scenario "
 # The engine CLI's stop line, as etcdmain/etcd.py logs it.
@@ -725,7 +730,7 @@ def measure_engine(ctx, sc_deadline, G_e=None, sat_frac=0.55,
         a0 = eng.acked_requests
         t0 = time.time()
         r = 0
-        while time.time() < sat_end - 1.0 or r < 10:
+        while time.time() < sat_end - 1.0 or r < MIN_ROUNDS:
             offer(r)
             eng.run_round()
             r += 1
@@ -1060,7 +1065,7 @@ def measure_qread(ctx, sc_deadline):
             injected = 0
             t0 = time.time()
             r = 0
-            while time.time() < end_t or r < 10:
+            while time.time() < end_t or r < MIN_ROUNDS:
                 injected += offer_reads(DEPTH)
                 eng.run_round()
                 r += 1
@@ -1076,7 +1081,7 @@ def measure_qread(ctx, sc_deadline):
             a0 = eng.acked_requests
             t0 = time.time()
             r = 0
-            while time.time() < end_t or r < 10:
+            while time.time() < end_t or r < MIN_ROUNDS:
                 offer_writes(qpool, DEPTH)
                 eng.run_round()
                 r += 1
@@ -1109,7 +1114,7 @@ def measure_qread(ctx, sc_deadline):
         t0 = time.time()
         r = 0
         m_end = max(sc_deadline - 1.0, time.time() + 3.0)
-        while time.time() < m_end or r < 10:
+        while time.time() < m_end or r < MIN_ROUNDS:
             injected += offer_reads(DEPTH // 2, sample=False)
             offer_writes(wpool, DEPTH // 2)
             eng.run_round()

@@ -37,13 +37,13 @@ COPIES = 8      # at TE=5 about 22 MB streamed + 18 MB of ring rows each
 TURNS = ("old", "new", "new", "old")
 
 
-def resolve_inputs(rng, trailing, groups=G, w=W):
-    """Random ring/idx/last with indices < 1, negative, below the window
-    and above last, all present."""
-    ring = rng.randint(1, 9, (groups, P, w)).astype(np.int32)
-    last = rng.randint(0, 3 * w, (groups, P)).astype(np.int32)
+def resolve_inputs(rng, trailing, groups=G, w=W, peers=P):
+    """Random ring/idx/last of `groups` × `peers` rows with indices < 1,
+    negative, below the window and above last, all present."""
+    ring = rng.randint(1, 9, (groups, peers, w)).astype(np.int32)
+    last = rng.randint(0, 3 * w, (groups, peers)).astype(np.int32)
     idx = rng.randint(-2 * w, 3 * w + 2,
-                      (groups, P) + trailing).astype(np.int32)
+                      (groups, peers) + trailing).astype(np.int32)
     return ring, idx, last
 
 

@@ -19,6 +19,7 @@ length-prefixed: u32 header-length + JSON header + u32 blob-length + blob.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import socket
@@ -60,6 +61,8 @@ class FrameTransport:
                                       for h in self.peers}
         self._evs: Dict[int, threading.Event] = {h: threading.Event()
                                                  for h in self.peers}
+        # Enqueue order: each queued frame's first field.
+        self._seq = itertools.count()
         self._srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._srv.bind(listen_addr)
@@ -88,7 +91,7 @@ class FrameTransport:
             return
         if len(q) == q.maxlen:
             self.report_unreachable(to)
-        q.append((header, blob))
+        q.append((next(self._seq), header, blob))
         self._evs[to].set()
 
     def broadcast(self, header: dict, blob: bytes = b"") -> None:
@@ -100,6 +103,7 @@ class FrameTransport:
         addr = self.peers[h]
         while not self._stop.is_set():
             if sock is None:
+                began = next(self._seq)
                 try:
                     sock = socket.create_connection(addr, timeout=2.0)
                     sock.sendall(struct.pack("<I", self.host_id))
@@ -108,7 +112,11 @@ class FrameTransport:
                     self.report_unreachable(h)
                     # Drop what piled up while unreachable; the protocol
                     # heals via pulls/timeouts (reference drop-on-full).
-                    self._qs[h].clear()
+                    # A frame queued since the attempt began waits for
+                    # the next one: the peer may be listening by then.
+                    q = self._qs[h]
+                    while q and q[0][0] < began:
+                        q.popleft()
                     if self._stop.wait(0.2):
                         return
                     continue
@@ -118,7 +126,7 @@ class FrameTransport:
                 ev.clear()
                 continue
             try:
-                header, blob = self._qs[h].popleft()
+                _, header, blob = self._qs[h].popleft()
             except IndexError:
                 continue
             try:

@@ -28,7 +28,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from etcd_tpu_torch import errors, raftpb
 from etcd_tpu_torch.raftpb import (ConfChange, ConfChangeType, ConfState, Entry,
-                             EntryType, Message, MessageType, Snapshot,
+                             EntryType, Message, Snapshot,
                              SnapshotMetadata)
 from etcd_tpu_torch.raft.core import Config, ProposalDroppedError
 from etcd_tpu_torch.raft.node import Node, Peer
@@ -466,12 +466,11 @@ class EtcdServer:
     def report_unreachable(self, pid: int) -> None:
         """Transport feedback: peer send failed → leader drops the peer to
         probe mode (reference server.go:399, raft.go:575-581). Thread-safe."""
-        self._inq.put(("msg", Message(type=MessageType.UNREACHABLE, frm=pid)))
+        self._inq.put(("unreachable", pid))
 
     def report_snapshot(self, pid: int, ok: bool) -> None:
         """Transport feedback on a snapshot send (reference server.go:403)."""
-        self._inq.put(("msg", Message(type=MessageType.SNAP_STATUS, frm=pid,
-                                      reject=not ok)))
+        self._inq.put(("snap_status", (pid, ok)))
 
     # -- membership API (reference configure() server.go:640-662) -----------
 
@@ -554,9 +553,16 @@ class EtcdServer:
             if self._stop_ev.is_set():
                 break
             if kind == "tick" or time.monotonic() >= next_tick:
-                while time.monotonic() >= next_tick:
+                now = time.monotonic()
+                if now >= next_tick:
+                    # One tick however late, as Go's time.Ticker drops the
+                    # ticks a slow receiver missed (etcdserver/raft.go's
+                    # ticker): after a stall longer than the election
+                    # timeout, the heartbeats queued behind it are
+                    # stepped before this member campaigns.
                     self.node.tick()
-                    next_tick += tick_s
+                    next_tick += tick_s * (1 + int((now - next_tick)
+                                                   // tick_s))
                 self._on_tick()
             if kind == "msg":
                 try:
@@ -580,6 +586,14 @@ class EtcdServer:
                 except ProposalDroppedError:
                     self.wait.trigger(payload.id, errors.EtcdError(
                         errors.ECODE_LEADER_ELECT, cause="no leader"))
+            elif kind == "unreachable":
+                # Through the node's report_* (node.go's ReportUnreachable
+                # and ReportSnapshot): `node.step` drops a local message
+                # from a peer, so a leader never left a snapshot whose
+                # send failed and waited on that follower for good.
+                self.node.report_unreachable(payload)
+            elif kind == "snap_status":
+                self.node.report_snapshot(*payload)
             elif kind == "status":
                 # Introspection runs on the owning thread so it never tears
                 # a mid-apply view (reference routes Status() through

@@ -37,7 +37,7 @@ def put_retry(eng, g, key, val, deadline, tag="", attempt_s=2.0):
 
 
 def run(engines, make, groups, seed=SEED, attempt_s=2.0, threads=1,
-        on_step=None):
+        on_step=None, kill_cycles=2):
     """The soak, from a pool whose every group is led. `engines` is the
     pool (one HostEngine a host, all started); `make(r)` builds host r's
     engine anew on its own data dir; `groups` are the groups each step
@@ -45,9 +45,10 @@ def run(engines, make, groups, seed=SEED, attempt_s=2.0, threads=1,
     random.Random(seed):
 
     1. every engine alive and serving (60 s);
-    2. twice: stop() one engine, a write to every group through the
-       survivors (150 s), the engine rebuilt and started, every engine
-       alive and serving again (150 s);
+    2. `kill_cycles` times (twice by default): stop() one engine, a
+       write to every group through the survivors (150 s), the engine
+       rebuilt and started, every engine alive and serving again (150
+       s);
     3. a pair's frames blocked both ways (`frames.blocked`), a write to
        every group through a third engine (150 s), healed, every engine
        alive and serving (150 s).
@@ -102,7 +103,7 @@ def run(engines, make, groups, seed=SEED, attempt_s=2.0, threads=1,
                          f"v{seq}", deadline_s, tag)
 
     step("baseline", {"acks": prove_all_serving(60, "baseline")})
-    for cycle in range(2):
+    for cycle in range(kill_cycles):
         victim = rng.randrange(n)
         engines[victim].stop()
         step("stopped", {"cycle": cycle, "victim": victim})

@@ -24,7 +24,7 @@ VERBATIM = ["errors.py", "utils/wait.py", "utils/idutil.py",
             "etcdhttp/web.py", "etcdhttp/client.py",
             "etcdhttp/client_security.py", "server/batchframe.py",
             "etcdhttp/tenants.py", "server/ingress.py",
-            "parallel/frames.py", "store/native_store.py",
+            "store/native_store.py",
             "tools/etcd_top.py", "raftpb.py", "raft/storage.py",
             "raft/progress.py", "raft/log.py", "raft/core.py",
             "raft/node.py", "raft/__init__.py", "wal/wal.py",
@@ -193,30 +193,73 @@ def test_cli_config_differs_only_by_the_engine_device():
 
 def test_member_server_differs_only_by_the_dropped_proposal_guard():
     """server/server.py is the JAX package's, apart from import lines,
-    plus one guard in the run loop: a peer's forwarded proposal that
-    raft drops (no leader here) no longer ends the loop
-    (tests/test_torch_server.py holds the behaviour)."""
-    ours = open(os.path.join(PKG, "server/server.py")).read().splitlines()
-    theirs = open(os.path.join(ROOT, "etcd_tpu", "server/server.py")
-                  ).read().splitlines()
-    ours = [_IMPORT_LINE.sub(r"\1etcd_tpu", ln) for ln in ours]
-    i = ours.index("                try:")
-    assert ours[:i] == theirs[:i]
-    assert theirs[i] == "                self.node.step(payload)"
-    assert ours[i:i + 9] == [
-        "                try:",
-        "                    self.node.step(payload)",
-        "                except ProposalDroppedError:",
-        "                    # A proposal a peer forwarded here while this "
+    plus three repairs of its run loop: a peer's forwarded proposal that
+    raft drops (no leader here) no longer ends the loop; a late tick
+    fires once, where its source fires every tick a stall missed, back
+    to back (`etcd_tpu/server/server.py:557-559`), so that a stall
+    longer than the election timeout made the member campaign ahead of
+    the heartbeats queued behind it; and the transport's
+    report_unreachable and report_snapshot reach the raft core through
+    the node's report methods, where its source queues them as messages
+    that `node.step` drops (`etcd_tpu/server/server.py:466-474`; the
+    import of MessageType goes with them). tests/test_torch_server.py
+    holds the three behaviours."""
+    import difflib
+    rel = "server/server.py"
+    ours = [_IMPORT_LINE.sub(r"\1etcd_tpu", ln)
+            for ln in open(os.path.join(PKG, rel)).read().splitlines()]
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    diff = [ln for ln in difflib.unified_diff(theirs, ours, lineterm="",
+                                              n=0)
+            if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+    assert diff == [
+        "-                             EntryType, Message, MessageType, "
+        "Snapshot,",
+        "+                             EntryType, Message, Snapshot,",
+        "-        self._inq.put((\"msg\", Message(type=MessageType.UNREACHABLE, "
+        "frm=pid)))",
+        "+        self._inq.put((\"unreachable\", pid))",
+        "-        self._inq.put((\"msg\", Message(type=MessageType.SNAP_STATUS, "
+        "frm=pid,",
+        "-                                      reject=not ok)))",
+        "+        self._inq.put((\"snap_status\", (pid, ok)))",
+        "-                while time.monotonic() >= next_tick:",
+        "+                now = time.monotonic()",
+        "+                if now >= next_tick:",
+        "+                    # One tick however late, as Go's time.Ticker "
+        "drops the",
+        "+                    # ticks a slow receiver missed "
+        "(etcdserver/raft.go's",
+        "+                    # ticker): after a stall longer than the "
+        "election",
+        "+                    # timeout, the heartbeats queued behind it are",
+        "+                    # stepped before this member campaigns.",
+        "-                    next_tick += tick_s",
+        "+                    next_tick += tick_s * (1 + int((now - next_tick)",
+        "+                                                   // tick_s))",
+        "-                self.node.step(payload)",
+        "+                try:",
+        "+                    self.node.step(payload)",
+        "+                except ProposalDroppedError:",
+        "+                    # A proposal a peer forwarded here while this "
         "member",
-        "                    # knows no leader: dropped, as raft.go's "
+        "+                    # knows no leader: dropped, as raft.go's "
         "stepFollower",
-        "                    # and stepCandidate drop it (the proposer's "
+        "+                    # and stepCandidate drop it (the proposer's "
         "request",
-        "                    # times out), instead of ending this loop.",
-        "                    pass",
-        "            elif kind == \"prop\":"]
-    assert ours[i + 8:] == theirs[i + 1:]
+        "+                    # times out), instead of ending this loop.",
+        "+                    pass",
+        "+            elif kind == \"unreachable\":",
+        "+                # Through the node's report_* (node.go's "
+        "ReportUnreachable",
+        "+                # and ReportSnapshot): `node.step` drops a local "
+        "message",
+        "+                # from a peer, so a leader never left a snapshot whose",
+        "+                # send failed and waited on that follower for good.",
+        "+                self.node.report_unreachable(payload)",
+        "+            elif kind == \"snap_status\":",
+        "+                self.node.report_snapshot(*payload)",
+    ]
 
 
 def test_dump_logs_differs_only_by_usage_and_batched_entries():
@@ -295,6 +338,40 @@ def test_security_differs_only_by_the_verify_cache():
         "+                    _VERIFY_CACHE.pop(next(iter(_VERIFY_CACHE)), "
         "None)",
         "+                _VERIFY_CACHE[ck] = True",
+    ]
+
+
+def test_frames_differs_only_by_the_reconnect_repair():
+    """parallel/frames.py is the JAX package's, apart from import lines,
+    with one departure: a refused connect drops only the frames queued
+    before that attempt began, where its source clears the whole queue
+    (`etcd_tpu/parallel/frames.py:111`) and so also loses a frame queued
+    while the attempt ran, though the peer listens by then. Each queued
+    frame carries its enqueue order for that
+    (tests/test_torch_frames_ref.py holds the behaviour)."""
+    import difflib
+    rel = "parallel/frames.py"
+    ours = [_IMPORT_LINE.sub(r"\1etcd_tpu", ln)
+            for ln in open(os.path.join(PKG, rel)).read().splitlines()]
+    theirs = open(os.path.join(ROOT, "etcd_tpu", rel)).read().splitlines()
+    diff = [ln for ln in difflib.unified_diff(theirs, ours, lineterm="",
+                                              n=0)
+            if ln[:1] in "+-" and ln[:3] not in ("+++", "---")]
+    assert diff == [
+        "+import itertools",
+        "+        # Enqueue order: each queued frame's first field.",
+        "+        self._seq = itertools.count()",
+        "-        q.append((header, blob))",
+        "+        q.append((next(self._seq), header, blob))",
+        "+                began = next(self._seq)",
+        "-                    self._qs[h].clear()",
+        "+                    # A frame queued since the attempt began waits for",
+        "+                    # the next one: the peer may be listening by then.",
+        "+                    q = self._qs[h]",
+        "+                    while q and q[0][0] < began:",
+        "+                        q.popleft()",
+        "-                header, blob = self._qs[h].popleft()",
+        "+                _, header, blob = self._qs[h].popleft()",
     ]
 
 

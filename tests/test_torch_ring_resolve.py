@@ -53,11 +53,19 @@ def _inputs(G, P, W, trailing, seed):
     return ring, idx, last
 
 
-@pytest.mark.parametrize("trailing", [(4,), (5,), (5, 4), ()],
-                         ids=["E", "P", "PxE", "empty"])
-def test_ref_matches_pallas_and_model(trailing):
-    G, P, W = 6, 5, 16
-    ring, idx, last = _inputs(G, P, W, trailing, seed=len(trailing) + 1)
+# (P, W, trailing, seed): the engine's shapes and edge cases, then the
+# other shapes the port launches the kernel at: churn's 7 peers (conflict
+# scan (4,), send assembly (7,)), shallow_clients' 3 peers (max_ents 8,
+# send assembly (3,)) and frames_soak's W=8 (max_ents 2, send (5,)).
+@pytest.mark.parametrize("P, W, trailing, seed", [
+    (5, 16, (4,), 2), (5, 16, (5,), 2), (5, 16, (5, 4), 3), (5, 16, (), 1),
+    (7, 16, (4,), 4), (7, 16, (7,), 5), (3, 16, (8,), 6), (3, 16, (3,), 7),
+    (5, 8, (2,), 8), (5, 8, (5,), 9)],
+    ids=["E", "P", "PxE", "empty", "P7-E4", "P7-P", "P3-E8", "P3-P",
+         "W8-E2", "W8-P"])
+def test_ref_matches_pallas_and_model(P, W, trailing, seed):
+    G = 6
+    ring, idx, last = _inputs(G, P, W, trailing, seed=seed)
     want = _model(ring, idx, last, W)
     pallas = np.asarray(pallas_resolve(jnp.asarray(ring), jnp.asarray(idx),
                                        jnp.asarray(last), block_rows=8,

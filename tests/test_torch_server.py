@@ -119,6 +119,82 @@ def test_a_forwarded_proposal_without_a_leader_leaves_the_loop_running(
         srv.stop()
 
 
+def test_a_stalled_member_ticks_once_and_does_not_campaign(tmp_path,
+                                                          monkeypatch):
+    """A member whose run loop stalls for longer than its election
+    timeout ticks once when it resumes, as Go's time.Ticker drops the
+    ticks a slow receiver missed, so a heartbeat queued behind the stall
+    is stepped before the member campaigns. The JAX package's loop fires
+    every missed tick back to back (`etcd_tpu/server/server.py:557-559`):
+    a stall of 10-20 ticks made a member campaign, and under load the
+    three members of tests/test_client_sdk.py's cluster (10 ms ticks, in
+    one process) answered writes with 301 "During Leader Election". Here
+    the loop's clock is the test's: one member of a three-member cluster
+    whose peers never start, a stall of 30 ticks (the election timeout
+    is 10-19), then a status request; this test fails on the
+    reference's loop."""
+    import types
+    from etcd_tpu_torch.server import server as S
+    from etcd_tpu_torch.server.transport import (InMemoryNetwork,
+                                                 InMemoryTransport)
+    clock = [1000.0]
+    monkeypatch.setattr(S, "time", types.SimpleNamespace(
+        monotonic=lambda: clock[0]))
+    initial = {f"m{i}": [f"mem://{i}"] for i in range(3)}
+    srv = S.EtcdServer(S.ServerConfig(
+        name="m0", data_dir=str(tmp_path / "m0"), initial_cluster=initial,
+        tick_ms=10, request_timeout=10.0),
+        InMemoryTransport(InMemoryNetwork(), 0))
+    srv.start()
+    try:
+        before = srv.raft_status()      # answered by the run loop
+        clock[0] += 0.30                # the loop stalled for 30 ticks
+        after = srv.raft_status()
+        assert before["raftState"] == after["raftState"] == "FOLLOWER"
+        assert after["term"] == before["term"]
+        assert srv._thread.is_alive()
+    finally:
+        srv.stop()
+
+
+def test_transport_feedback_reaches_the_raft_core(tmp_path):
+    """A transport's report_unreachable and report_snapshot reach the
+    consensus core through the node's report methods, as etcd's
+    node.ReportUnreachable and ReportSnapshot do. The JAX package's
+    server queues them as messages from the peer
+    (`etcd_tpu/server/server.py:466-474`), which `node.step` drops as
+    local messages from another member: a leader whose MsgSnap to an
+    isolated follower was dropped stayed in snapshot state for that
+    follower for good, and TestSnapshot's catch-up above timed out when
+    the follower had not campaigned while isolated (3 runs in 240 under
+    load, 0 with the repair). Here: one member of a three-member cluster
+    whose peers never start, its core's `step` recorded; this test fails
+    on the reference's server."""
+    from etcd_tpu_torch.raftpb import MessageType
+    from etcd_tpu_torch.server.transport import (InMemoryNetwork,
+                                                 InMemoryTransport)
+    from etcd_tpu_torch.server.server import EtcdServer, ServerConfig
+    initial = {f"m{i}": [f"mem://{i}"] for i in range(3)}
+    srv = EtcdServer(ServerConfig(
+        name="m0", data_dir=str(tmp_path / "m0"), initial_cluster=initial,
+        tick_ms=1000, request_timeout=10.0),
+        InMemoryTransport(InMemoryNetwork(), 0))
+    srv.start()
+    try:
+        peer = next(m.id for m in srv.cluster.members() if m.id != srv.id)
+        core, seen = srv.node.raft, []
+        step = core.step
+        core.step = lambda m: (seen.append((m.type, m.frm, m.reject)),
+                               step(m))[1]
+        srv.report_unreachable(peer)
+        srv.report_snapshot(peer, False)
+        srv.raft_status()           # the run loop has taken both reports
+        assert (MessageType.UNREACHABLE, peer, False) in seen
+        assert (MessageType.SNAP_STATUS, peer, True) in seen
+    finally:
+        srv.stop()
+
+
 def test_the_port_runs_on_the_c_store():
     """The cases above run on the port's C store and C WAL codec."""
     assert torch_store.HAVE_NATIVE_STORE and native.HAVE_NATIVE
