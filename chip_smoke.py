@@ -2009,15 +2009,15 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
 
             # 3. one write to every tenant through the survivors, each
             # retried (5 s attempts) until it acks; one rank is SIGKILLed
-            # once a tenth of them have acked.
+            # once a tenth of them have acked (tools/frames_kill_loop.py's
+            # kill step, which loops it).
+            from etcd_tpu_torch.tools import frames_kill_loop
             victim_gs = {g for g in gs if _http(
                 "GET", f"{bases[0]}/tenants/{g}/status")[1]["lead"]
                 == victim}
             survivors = [r for r in range(hosts) if r != victim]
-            first_ack = {}
-            killed = threading.Event()
-            t_kill = []
             reelected = {}     # written group the victim led -> seconds
+            t_kill = []
 
             def watch():
                 """Each written group the victim led, from the kill until
@@ -2036,44 +2036,21 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
                     _in_threads(check, left, n_threads=20)
                     time.sleep(0.1)
 
-            def put_through(g):
-                r = survivors[g % len(survivors)]
-                deadline = time.monotonic() + 180
-                last = None
-                while True:
-                    try:
-                        st, body = _http(
-                            "PUT", f"{bases[r]}/tenants/{g}/v2/keys/killed",
-                            f"value=k{g}".encode(), FORM, timeout=5)
-                        if st in (200, 201):
-                            first_ack[g] = time.perf_counter()
-                            acked[(g, "killed")] = (f"k{g}", r)
-                            return
-                        last = (st, body)
-                    except OSError as e:
-                        last = repr(e)
-                    if time.monotonic() > deadline:
-                        raise AssertionError(
-                            f"g={g} never acked at {r} (last answer "
-                            f"{last}); status by rank "
-                            f"{_statuses(bases, survivors, g)}")
-                    time.sleep(0.05)
-
-            def kill():
-                while len(first_ack) < len(gs) // 10:
-                    time.sleep(0.01)
-                procs[victim].send_signal(signal.SIGKILL)
-                t_kill.append(time.perf_counter())
-                watcher.start()
-                procs[victim].wait(timeout=60)
-                killed.set()
-
-            killer = threading.Thread(target=kill, daemon=True)
             watcher = threading.Thread(target=watch, daemon=True)
-            killer.start()
-            errs = _in_threads(put_through, gs)
-            if errs or not killed.wait(60):
-                raise AssertionError(f"writes through the kill: {errs[:5]}")
+
+            def on_kill(t):
+                t_kill.append(t)
+                watcher.start()
+
+            first_ack, _, stalled, _ = frames_kill_loop.kill_step(
+                bases, procs[victim], survivors, gs, lambda g: f"k{g}",
+                acked, on_kill)
+            if stalled:
+                raise AssertionError("writes through the kill: " + "; ".join(
+                    f"g={g} never acked at {survivors[g % len(survivors)]} "
+                    f"(last answer {last}); status by rank "
+                    f"{frames_kill_loop.statuses(bases, survivors, g)}"
+                    for g, last in list(stalled.items())[:5]))
             watcher.join(timeout=240)
             acks = sorted(t for t in first_ack.values() if t > t_kill[0])
             gaps = np.diff([t_kill[0]] + acks)
@@ -2084,7 +2061,7 @@ def phase_multihost_frames(dev, groups=G, tenants=1000, hosts=NHOSTS,
             log("multihost_frames", t0, step="sigkill", victim=victim,
                 acked=len(first_ack), acked_after_kill=len(acks),
                 worst_ack_gap_s=float(gaps.max()) if len(gaps) else None,
-                attempt_timeout_s=5,
+                attempt_timeout_s=frames_kill_loop.ATTEMPT_S,
                 victim_led_last_first_ack_s=max(
                     (after[g] for g in victim_gs if g in after),
                     default=None),
@@ -2411,20 +2388,6 @@ def phase_frames_soak_process(dev, groups=SOAK_GROUPS,
         raise AssertionError(f"frames_soak: rc={rc}; last line {last!r}")
     out = json.loads(last)
     return out["launches"], out["by_variant"]
-
-
-def _statuses(bases, ranks, g) -> dict:
-    """Group g's consensus status (lead, term, commit, applied) on each
-    of `ranks`, or the error that asking met: a failure's evidence."""
-    out = {}
-    for r in ranks:
-        try:
-            st = _http("GET", f"{bases[r]}/tenants/{g}/status", timeout=10)[1]
-            out[r] = {k: st.get(k) for k in ("lead", "term", "commit",
-                                              "applied")}
-        except Exception as e:  # noqa: BLE001 — evidence, not a check
-            out[r] = repr(e)
-    return out
 
 
 def _gloo_cuda_probe(dev) -> str:

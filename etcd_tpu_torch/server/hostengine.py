@@ -293,6 +293,7 @@ class HostEngine:
         self.pay_frames_dropped = 0
         self.pulls_sent = 0
         self.payloads_pulled = 0
+        self.appends_cut = 0
         # Cross-host snapshot install state: staged inbound installs
         # (g -> newest (a, term, lead, ring_row, store_blob)), records to
         # journal this round, per-(g, target) send holdoff, counters.
@@ -546,6 +547,56 @@ class HostEngine:
                                  _pack_payloads(haves))
             return
         self._rx.append((frm, header, blob))
+
+    def _take_meta(self) -> List[Tuple[int, bytes]]:
+        """This round's mailbox frames, (sender, frame). Normally one per
+        sender round. When a backlog built up (transient stall on our
+        side), up to 4 per sender — newer frames overwrite overlapping
+        group rows (those rows are dropped packets; raft's heartbeat/
+        probe machinery retransmits), so the queue recovers to fresh
+        instead of serving permanently ~maxlen-round-stale mailboxes."""
+        out = []
+        for j, q in list(self._meta_rx.items()):
+            for _ in range(4):
+                try:
+                    out.append((j, q.popleft()))
+                except IndexError:
+                    break
+        return out
+
+    def _cut_unpaid(self, idx: np.ndarray, vals: np.ndarray) -> np.ndarray:
+        """Cut each append among a peer's mailbox rows (`vals`, a copy,
+        for groups `idx`) back to the entries before the first one whose
+        payload this host lacks, and want that payload by pull; returns
+        `vals`. A host then holds an entry only once it holds its
+        payload, so an entry that commits can be applied from any host
+        that holds it, whichever of them lives. The reference takes an
+        append whole (etcd_tpu/server/hostengine.py:1126-1143): where a
+        payload frame was lost (a full send queue drops its oldest, a
+        reset connection the frame in flight) the followers held entries
+        that only their leader could apply, and the leader's death then
+        stopped the group's apply cursor there on every survivor. A
+        leader's no-op, the first entry of its term, has no payload. An
+        append below our commit index is ignored by the round anyway."""
+        from etcd_tpu_torch.ops.state import (F_INDEX, F_LOGTERM, F_NENT,
+                                              F_TYPE, M_APP, N_FIXED_FIELDS)
+        rows = np.nonzero((vals[:, F_TYPE] == M_APP) & (vals[:, F_NENT] > 0)
+                          & (vals[:, F_INDEX] >= self.l_commit[idx]))[0]
+        now = time.time()
+        for r in rows:
+            g, prev = int(idx[r]), int(vals[r, F_INDEX])
+            t_prev = int(vals[r, F_LOGTERM])
+            for k in range(int(vals[r, F_NENT])):
+                t = int(vals[r, N_FIXED_FIELDS + k])
+                key = (g, prev + 1 + k, t)
+                if t == t_prev and key not in self.payloads:
+                    vals[r, F_NENT] = k
+                    vals[r, N_FIXED_FIELDS + k:] = 0
+                    self._missing.setdefault(key, now)
+                    self.appends_cut += 1
+                    break
+                t_prev = t
+        return vals
 
     def _drain_frames(self) -> None:
         G = self.cfg.groups
@@ -1093,6 +1144,12 @@ class HostEngine:
         B = self.cfg.batch_max
 
         # -- 1. frames in; stage local, forward remote --------------------
+        # This round's mailbox frames are taken BEFORE the payload frames
+        # are drained: a peer sends a round's payloads ahead of its meta
+        # frame on one ordered stream (step 6), so the payloads of every
+        # append taken here are drained below, where _cut_unpaid finds
+        # them.
+        metas = self._take_meta() if self._frames_plane else []
         self._drain_frames()
         if self._pending_snaps:
             self._install_snaps()
@@ -1174,25 +1231,14 @@ class HostEngine:
             inbox_my = np.zeros((G, Pn, F), np.int32)
             if self._self_loop is not None:
                 inbox_my[:, my] = self._self_loop
-            for j, q in list(self._meta_rx.items()):
-                # Normally one frame per sender round. When a backlog
-                # built up (transient stall on our side), drain up to 4
-                # per round — newer frames overwrite overlapping group
-                # rows (those rows are dropped packets; raft's heartbeat/
-                # probe machinery retransmits), so the queue recovers to
-                # fresh instead of serving permanently ~maxlen-round-stale
-                # mailboxes.
-                consumed = 0
-                while q and consumed < 4:
-                    consumed += 1
-                    try:
-                        idx, vals = _unpack_meta(q.popleft(), F)
-                    except (ValueError, struct.error):
-                        log.warning("bad meta frame from host %d dropped",
-                                    j)
-                        continue
-                    ok = idx < G
-                    inbox_my[idx[ok], j] = vals[ok]
+            for j, blob in metas:
+                try:
+                    idx, vals = _unpack_meta(blob, F)
+                except (ValueError, struct.error):
+                    log.warning("bad meta frame from host %d dropped", j)
+                    continue
+                ok = idx < G
+                inbox_my[idx[ok], j] = self._cut_unpaid(idx[ok], vals[ok])
             cnt = np.zeros((G, Pn), np.int32)
             cnt[:, my] = cnt_local
             inbox = torch.zeros((G, Pn, Pn, F), dtype=torch.int32,
@@ -1316,21 +1362,13 @@ class HostEngine:
             self.wal.append(rec)
             self._recent_recs.append(rec)
 
-        # -- 6a. frames plane: ship this round's mailbox column AFTER the
-        # fsync above — the persist-before-send contract (doc.go:31-39)
-        # holds per-host exactly like the reference's Ready ordering.
-        # Sparse per-peer encoding: only groups with a live message.
-        if routed_my is not None:
-            for h in range(Pn):
-                if h == my:
-                    continue
-                msgs = routed_my[:, h, :]
-                idx = np.nonzero(msgs.any(axis=1))[0]
-                if len(idx):
-                    self.frames.send(h, {"t": "meta"},
-                                     _pack_meta(idx, msgs[idx]))
-
-        # -- 6. fan out fresh local admissions ----------------------------
+        # -- 6. fan out fresh local admissions, AFTER the fsync above and
+        # BEFORE this round's mailbox column (6b), which carries their
+        # append. A peer's frames arrive in the order they were sent, so
+        # a peer takes the append with its payloads in hand, and
+        # _cut_unpaid has nothing to cut. In the other order (the
+        # reference's, etcd_tpu/server/hostengine.py:1275-1303) every
+        # append would be cut until a pull brought its payloads.
         if fresh_frames:
             blob = _pack_payloads(fresh_frames)
             if self._fault_rng is None:
@@ -1345,6 +1383,21 @@ class HostEngine:
                     else:
                         self.pay_frames_dropped += 1
         self._fresh_payloads = []
+
+        # -- 6b. frames plane: ship this round's mailbox column AFTER the
+        # fsync above — the persist-before-send contract (doc.go:31-39)
+        # holds per-host exactly like the reference's Ready ordering —
+        # and after the payloads its appends carry (6).
+        # Sparse per-peer encoding: only groups with a live message.
+        if routed_my is not None:
+            for h in range(Pn):
+                if h == my:
+                    continue
+                msgs = routed_my[:, h, :]
+                idx = np.nonzero(msgs.any(axis=1))[0]
+                if len(idx):
+                    self.frames.send(h, {"t": "meta"},
+                                     _pack_meta(idx, msgs[idx]))
 
         # -- 7. apply + ack locally ---------------------------------------
         self._apply_committed(trigger=True)
@@ -1575,6 +1628,10 @@ class HostEngine:
         if now - self._last_pull < self.cfg.pull_interval:
             return
         self._last_pull = now
+        # A want at or below its group's applied index is moot: an entry
+        # an append was cut at, which a later leader overwrote.
+        for k in [k for k in self._missing if k[1] <= self.applied[k[0]]]:
+            del self._missing[k]
         wants = [list(k) for k, t0 in self._missing.items()
                  if now - t0 >= self.cfg.pull_interval / 2]
         if wants:

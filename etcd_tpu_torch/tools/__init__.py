@@ -7,5 +7,6 @@ front of one upstream); `scale_curve`, `profile_engine`, `etcd_top` and
 WAL, an engine's WAL, a member's v3 backend) and `functional_tester`
 (the chaos harness over member processes); and the card tools
 `latency_hops` (the round's propose->commit time against G), `soak`
-(seeded fault campaigns) and `multihost_bench` (multi-host against
-single-host engines)."""
+(seeded fault campaigns), `multihost_bench` (multi-host against
+single-host engines) and `frames_kill_loop` (the frames plane's kill
+step in a loop, each write's time from the kill to its ack)."""

@@ -10,13 +10,20 @@ package's `bench.py`, on the CPU.
   the same masks and proposals; every state field and the bench's
   readback (last_index and commit at the slots, the max commit) equal
   after every round (exact: int32).
-- Both benches end to end at tiny sizes in one environment (run at once,
-  the JAX bench as its child, the port through its parent): for every
-  scenario the port's result carries every key the JAX bench's carries,
-  and the invariants that `chip_smoke.py`'s bench phase holds on the card
-  hold on both. The JAX bench runs with a larger budget than the port's
-  (`JAX_BUDGET_S`), and neither may skip a scenario ("budget
-  exhausted").
+- Both benches end to end at tiny sizes in one environment: each side
+  runs every scenario alone, one run after another in one process of
+  its own (a lane: the bench's measuring child with
+  BENCH_SCENARIO=<scenario> and a budget of its own, `BUDGET_S`), the
+  two lanes at once. For every scenario the port's result carries every
+  key the JAX bench's carries, the invariants that `chip_smoke.py`'s
+  bench phase holds on the card hold on both, no run logs "budget
+  exhausted" and each run's line names its scenario. A bench gives each
+  scenario of a run a share of one budget and skips the scenarios left
+  once it runs out; the serving scenarios' fixed costs (boots, ten-round
+  floors, drains) grow with the box's load, so with all ten in one run
+  a loaded box skipped the last ones, whatever the budget (150 s, then
+  210 s). Alone in its run a scenario has nothing after it to skip. The
+  port's bench also runs once as a user runs it, through its parent.
 - Without a card and without BENCH_PLATFORM=cpu the bench exits 1 at
   once and measures nothing (tests/test_torch_imports.py holds its
   message with the other card tools')."""
@@ -249,14 +256,48 @@ TINY = {"BENCH_PLATFORM": "cpu", "BENCH_GROUPS": "64", "BENCH_ROUNDS": "12",
         "BENCH_EXPIRY_GROUPS": "16", "BENCH_TTL_KEYS": "4",
         "BENCH_WATCHERS": "200", "BENCH_WATCH_KEYS": "8",
         "BENCH_SHALLOW_CONNS": "40", "BENCH_SHALLOW_TENANTS": "4",
-        "BENCH_HUB_WATCHERS": "20", "BENCH_SHALLOW_LEG_S": "1",
-        "BENCH_BUDGET_S": "150"}
-# The JAX bench's own budget. Its time-boxed scenarios fill their shares
-# of the budget while the others have fixed costs that grow with the
-# box's load, so under a loaded box 150 s ran out before its last
-# scenarios and it skipped them ("budget exhausted"). A larger budget
-# gives the tail room; the port's bench keeps TINY's.
-JAX_BUDGET_S = "210"
+        "BENCH_HUB_WATCHERS": "20", "BENCH_SHALLOW_LEG_S": "1"}
+# Each scenario's budget (BENCH_BUDGET_S of its own run): its share
+# (bench.WEIGHTS) of the 150 s the port's bench had for all ten, but for
+# two kinds. Engine's and latency's paced phases fill what they get, and
+# their floors (ten saturated rounds, a 5 s paced phase) ack writes at
+# 6 s. expiry_wave's wave runs from its keys' expiry (3-8 s after its
+# engine's boot) to its deadline: 60 s. At these sizes the others end
+# at their own floors (BENCH_ROUNDS, their 15-20 s windows) whatever
+# their budgets.
+BUDGET_S = {sc: 150 * w for sc, w in bench.WEIGHTS.items()} \
+    | {"engine": 6, "latency": 6, "expiry_wave": 60}
+# A lane runs one side's bench once for each scenario, one after
+# another in one process: the bench's measuring child (`child_main`, as
+# BENCH_CHILD=1 runs it) with BENCH_SCENARIO=<scenario> and the
+# scenario's own budget, from LANE_BUDGETS. One process a side keeps the
+# file's load at two busy cores, as when each bench ran all ten at once,
+# and pays each side's imports once. `print` is seen through a hook:
+# where the bench's `emit` prints its result line, the hook first prints
+# the `results` it was given ("results " and their JSON), as the line
+# keeps only the headline columns of its first scenario, here its only
+# one.
+_LANE = """
+import builtins, json, os, sys
+{imp} as b
+
+
+def _print(*args, **kw):
+    f = sys._getframe(1)
+    if f.f_code.co_name == "emit" and "results" in f.f_locals:
+        builtins.print("results " + json.dumps(f.f_locals["results"]),
+                       flush=True)
+    builtins.print(*args, **kw)
+
+
+b.print = _print
+for sc, budget in json.loads(os.environ["LANE_BUDGETS"]).items():
+    os.environ.update(BENCH_SCENARIO=sc, BENCH_BUDGET_S=str(budget))
+    rc = b.child_main()
+    if rc:
+        sys.exit(f"{{sc}}: rc {{rc}}")
+"""
+_IMPORT = {"jax": "import bench", "port": "from etcd_tpu_torch import bench"}
 
 
 def _bench_env(**extra):
@@ -266,34 +307,66 @@ def _bench_env(**extra):
     return env
 
 
+def _start_lane(d, side):
+    env = _bench_env(BENCH_CHILD="1", LANE_BUDGETS=json.dumps(
+        {sc: BUDGET_S[sc] for sc in bench.ORDER}))
+    if side == "jax":
+        env["JAX_PLATFORMS"] = "cpu"
+    with open(d / f"{side}.out", "w") as o, open(d / f"{side}.err",
+                                                  "w") as e:
+        return subprocess.Popen(
+            [sys.executable, "-c", _LANE.format(imp=_IMPORT[side])],
+            cwd=ROOT, env=env, stdout=o, stderr=e)
+
+
+def _lane_results(d, side, proc):
+    """A lane's ({scenario: its result line}, {scenario: its full
+    result}, its stderr), once it has run every scenario."""
+    rc = proc.wait(timeout=600)
+    text = (d / f"{side}.err").read_text()
+    assert rc == 0, (side, text[-3000:])
+    skipped = [ln for ln in text.splitlines() if "budget exhausted" in ln]
+    assert not skipped, (side, skipped)
+    lines, results, res = {}, {}, None
+    for ln in (d / f"{side}.out").read_text().splitlines():
+        if ln.startswith("results "):
+            res = json.loads(ln[8:])
+        elif ln.startswith("{"):
+            line = json.loads(ln)
+            sc = line["scenario"]
+            assert res is not None and set(res) == {sc}, (side, sc, res)
+            lines[sc], results[sc], res = line, res[sc], None
+    # The k-th run's line names the k-th scenario asked for.
+    assert list(lines) == list(bench.ORDER), (side, list(lines))
+    return lines, results, text
+
+
+def _parent(d):
+    """The port's bench as a user runs it (its parent streams the child's
+    line), at one scenario: (rc, its standard output)."""
+    env = _bench_env(BENCH_SCENARIO="uniform",
+                     BENCH_BUDGET_S=str(BUDGET_S["uniform"]))
+    res = subprocess.run([sys.executable, "-m", "etcd_tpu_torch.bench"],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=400)
+    (d / "parent.err").write_text(res.stderr)
+    return res.returncode, res.stdout
+
+
 @pytest.fixture(scope="module")
 def both(tmp_path_factory):
-    """Both benches at once in one environment: {"jax"|"port": (result
-    line, stderr)}."""
+    """Both sides' lanes at once, then the port's bench through its
+    parent once the port's lane is done: {"jax"|"port": ({scenario:
+    result line}, {scenario: its full result}, the lane's stderr),
+    "parent": (rc, stdout)}."""
     d = tmp_path_factory.mktemp("bench")
-    runs = {"jax": ([sys.executable, os.path.join(ROOT, "bench.py")],
-                    _bench_env(BENCH_CHILD="1", JAX_PLATFORMS="cpu",
-                               BENCH_BUDGET_S=JAX_BUDGET_S)),
-            "port": ([sys.executable, "-m", "etcd_tpu_torch.bench"],
-                     _bench_env())}
     procs = {}
-    for name, (cmd, env) in runs.items():
-        with open(d / f"{name}.out", "w") as out, \
-                open(d / f"{name}.err", "w") as err:
-            procs[name] = subprocess.Popen(cmd, cwd=ROOT, env=env,
-                                           stdout=out, stderr=err)
-    got = {}
     try:
-        for name, p in procs.items():
-            rc = p.wait(timeout=400)
-            err = (d / f"{name}.err").read_text()
-            assert rc == 0, (name, err[-3000:])
-            skipped = [ln for ln in err.splitlines()
-                       if "budget exhausted" in ln]
-            assert not skipped, (name, skipped)
-            lines = [ln for ln in (d / f"{name}.out").read_text()
-                     .splitlines() if ln.startswith("{")]
-            got[name] = (json.loads(lines[-1]), err)
+        for side in ("jax", "port"):
+            procs[side] = _start_lane(d, side)
+        got = {"port": _lane_results(d, "port", procs["port"])}
+        got["parent"] = _parent(d)
+        got["jax"] = _lane_results(d, "jax", procs["jax"])
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -302,12 +375,12 @@ def both(tmp_path_factory):
     return got
 
 
-def _scenario(line, sc):
-    """A scenario's result; the primary's is the line itself, its
-    commits/s the line's value."""
-    if line["scenario"] == sc:
-        return dict(line, commits_per_sec=line["value"])
-    return line["scenarios"][sc]
+def _scenario(line, results, sc):
+    """A scenario's result: the child's full result, whose commits/s its
+    line carries as the primary's value."""
+    assert line["scenario"] == sc and line["value"] == \
+        results[sc]["commits_per_sec"]
+    return results[sc]
 
 
 def _port_scenario_lines(err):
@@ -325,13 +398,14 @@ def _jax_phase_a_acked(err, sc):
 
 @pytest.mark.parametrize("sc", bench.ORDER)
 def test_bench_scenario_keys_and_invariants_on_both(both, sc):
-    (jline, jerr), (pline, perr) = both["jax"], both["port"]
+    (jlines, jres, jerr), (plines, pres, perr) = both["jax"], both["port"]
+    jline, pline = jlines[sc], plines[sc]
     assert jline["platform"] == pline["platform"] == "cpu"
     assert pline["device"] == "cpu" and pline["power_limit_w"] is None
     assert set(jline) <= set(pline)
     assert jline["metric"] == pline["metric"] \
         == "aggregate_commits_per_sec_64_groups_5_peers"
-    j, p = _scenario(jline, sc), _scenario(pline, sc)
+    j, p = _scenario(jline, jres, sc), _scenario(pline, pres, sc)
     assert set(j) <= set(p), set(j) - set(p)
     port_lines = _port_scenario_lines(perr)
     assert set(port_lines) == set(bench.ORDER)
@@ -363,6 +437,19 @@ def test_bench_scenario_keys_and_invariants_on_both(both, sc):
         assert moved == port_lines[sc]["engine_acked"]
         assert j["metrics_delta"]["etcd_engine_acked_requests_total"] \
             >= _jax_phase_a_acked(jerr, sc)
+
+
+def test_bench_parent_streams_its_childs_line(both):
+    """`python -m etcd_tpu_torch.bench` as a user runs it: the parent
+    starts the measuring child, passes the child's result line on to its
+    own standard output and exits 0 (the lanes run the measuring child
+    directly)."""
+    rc, stdout = both["parent"]
+    lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+    assert rc == 0 and lines, (rc, stdout[-2000:])
+    line = json.loads(lines[-1])
+    assert line["scenario"] == "uniform" and line["scenarios"] == {}
+    assert line["platform"] == "cpu" and line["value"] > 0
 
 
 def test_bench_without_a_card_exits_1_and_measures_nothing(tmp_path):

@@ -21,7 +21,14 @@ soak of the frames plane (`slow`, as there): seed 11, two stop-and-
 restart cycles and one partition window, every engine alive and every
 group serving after each step. Its schedule is tools/frames_soak.py's,
 which chip_smoke.py's frames_soak leg runs with five engines on the
-card."""
+card.
+
+test_a_leader_killed_once_its_append_is_out_leaves_its_group_serving
+kills a leader at the worst point of the round that admits a write
+(each follower has that round's frames up to its append, nothing
+after; and once more with the payloads lost on the way), a repair of
+the port's (ROADMAP §C): a follower that holds an entry must hold its
+payload, or no live host can apply it."""
 import json
 import os
 import shutil
@@ -446,3 +453,145 @@ def test_meta_frames_from_a_bad_sender_are_dropped(tmp_path, monkeypatch,
         assert all(e.failed is None for e in engines)
     finally:
         _stop_all(engines)
+
+
+class _DiesOnceItsAppendIsOut:
+    """A host that is SIGKILLed at the worst moment of the round that
+    admits a marked write: every peer has just received that round's
+    frames up to and including its meta frame (the append), and nothing
+    after it; then the host does nothing more and answers nothing. A
+    frame stream to one peer is ordered, so that is a crash the wire
+    allows whatever the host's send order. With `lose_pay` the round's
+    payload frames are lost on the way as well (a full send queue drops
+    its oldest frame, a reset connection the frame in flight)."""
+
+    def __init__(self, eng, g, marker, lose_pay):
+        self.eng, self.g, self.marker = eng, g, marker.encode()
+        self.lose_pay = lose_pay
+        self.armed = self.dead = False
+        self.entry = None          # (index, term) of the marked write
+        self._buf = None
+        self._send = eng.frames.send
+        self._round = eng.run_round
+        eng.frames.send = self.send
+        eng.run_round = self.run_round
+
+    def send(self, to, header, blob=b""):
+        if self.dead:
+            return
+        if self._buf is not None:
+            self._buf.append((to, header, blob))
+        else:
+            self._send(to, header, blob)
+
+    def run_round(self):
+        if self.dead:
+            time.sleep(0.01)
+            return
+        if not self.armed:
+            return self._round()
+        self._buf = []
+        try:
+            self._round()
+        finally:
+            buf, self._buf = self._buf, None
+        for _, header, blob in buf:
+            if header.get("t") == "pay":
+                for g, i, t, p in the._unpack_payloads(blob):
+                    if g == self.g and self.marker in p:
+                        self.entry = (i, t)
+        if self.entry is None:
+            for frame in buf:
+                self._send(*frame)
+            return
+        for to in {f[0] for f in buf}:
+            mine = [f for f in buf if f[0] == to]
+            metas = [k for k, f in enumerate(mine) if f[1].get("t") == "meta"]
+            for frame in mine[:metas[-1] + 1] if metas else []:
+                if not (self.lose_pay and frame[1].get("t") == "pay"):
+                    self._send(*frame)
+        self.dead = True
+
+
+@pytest.mark.parametrize("pay", ["sent", "lost"])
+def test_a_leader_killed_once_its_append_is_out_leaves_its_group_serving(
+        tmp_path, pay):
+    """The leader of a group admits a write, its append reaches both
+    followers, and it dies before anything else of that round leaves it
+    (the crash point above). Each host applies a committed entry from
+    its payload, which only the admitting host sends. If a follower took
+    the append without the payload, the new leader commits the entry,
+    no live host holds its payload, every pull goes unanswered, and the
+    group's apply cursor stops there: no later write to the group acks
+    until the dead host comes back (the multihost_frames stall of
+    chip_smoke.py's kill step).
+
+    - pay "sent": the host sends a round's payloads to each peer before
+      that round's meta frame, so the followers hold the entry with its
+      payload and the new leader commits and applies it;
+    - pay "lost": the payloads never arrive. A follower cuts an append
+      back to the entries whose payloads it holds, so neither takes the
+      entry; the new leader overwrites it and the group goes on."""
+    import threading
+
+    ports = _free_ports(N)
+    engines = [_mk(r, ports, str(tmp_path)) for r in range(N)]
+    g = 1
+    cuts = [_DiesOnceItsAppendIsOut(e, g, "cut-marker", pay == "lost")
+            for e in engines]
+    for e in engines:
+        e.start()
+    try:
+        _wait_all_leaders(engines)
+        for k in range(G):
+            _put_retry(engines[k % N], k, f"/1/base{k}", "v0",
+                       time.time() + 60, "baseline")
+        lead = next((r for r, e in enumerate(engines)
+                     if e.leader_slot(g) == r), -1)
+        assert lead >= 0
+        survivors = [e for r, e in enumerate(engines) if r != lead]
+        cut0 = [s.appends_cut for s in survivors]
+        cut = cuts[lead]
+        cut.armed = True
+        threading.Thread(target=lambda: _put_or_none(
+            engines[lead], g, "/1/cut", "cut-marker"), daemon=True).start()
+        deadline = time.time() + 30
+        while not cut.dead:
+            assert time.time() < deadline, "the marked write was not admitted"
+            time.sleep(0.01)
+        engines[lead].stop()
+        i, _ = cut.entry
+        deadline = time.time() + 30
+        if pay == "sent":
+            while not all(int(e.l_last[g]) >= i for e in survivors):
+                assert time.time() < deadline, "the append did not reach both"
+                time.sleep(0.01)
+        else:
+            while not all(s.appends_cut > c for s, c in zip(survivors, cut0)):
+                assert time.time() < deadline, "the append was not cut by both"
+                time.sleep(0.01)
+        try:
+            t_ack = _put_retry(survivors[0], g, "/1/after", "v1",
+                               time.time() + 60, "after the leader's death")
+        except AssertionError as e:
+            raise AssertionError(
+                f"{e}; entry {cut.entry}, status by host "
+                f"{[s.status(g) for s in survivors]}, pulls sent "
+                f"{[s.pulls_sent for s in survivors]}") from None
+        assert survivors[0].leader_slot(g) != lead
+        want = {(g, "/1/after"): "v1"}
+        if pay == "sent":
+            want[(g, "/1/cut")] = "cut-marker"
+        _wait_values(survivors, want, timeout=60)
+        assert all(int(e.applied[g]) >= i for e in survivors), t_ack
+        if pay == "lost":
+            assert [_value(s, g, "/1/cut") for s in survivors] == [None] * 2
+    finally:
+        _stop_all(engines)
+
+
+def _put_or_none(eng, g, key, val):
+    try:
+        _put(eng, g, key, val, timeout=5.0)
+    except errors.EtcdError:
+        pass

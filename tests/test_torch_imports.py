@@ -50,12 +50,13 @@ NATIVE_C = ["native/walcodec.c", "native/ingresscore.c",
             "native/storecore.c"]
 TOOLS = ["pool_serve", "ingress_serve", "scale_curve", "profile_engine",
          "etcd_top", "tsan_check", "dump_logs", "functional_tester",
-         "latency_hops", "soak", "multihost_bench"]
+         "latency_hops", "soak", "multihost_bench", "frames_kill_loop"]
 # The tools that run rounds on a device: "cuda" unless asked for the CPU.
 CARD_TOOLS = {"latency_hops": (["64"], "--device cpu", {}),
               "soak": (["kernel", "1"], "--device cpu", {}),
               "multihost_bench": ([], "MHB_DEVICE=cpu",
                                   {"MHB_OUT": "unused.json"}),
+              "frames_kill_loop": ([], "--device cpu", {}),
               "bench": ([], "BENCH_PLATFORM=cpu", {})}
 # A card tool's module where it is not etcd_tpu_torch.tools.<name>.
 CARD_TOOL_MODULES = {"bench": "etcd_tpu_torch.bench"}

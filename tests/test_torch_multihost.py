@@ -256,3 +256,31 @@ def test_collective_plane_is_refused(tmp_path):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def test_frames_kill_loop_on_the_cpu(tmp_path):
+    """tools/frames_kill_loop.py, the frames plane's kill step (as
+    chip_smoke.py's multihost_frames phase runs it) in a loop, at a
+    small size: two turns, each killing the rank that leads the most
+    written groups, every write acked, a kill-to-ack time for each write
+    acked after its kill, and each group's key read back with its last
+    acked value."""
+    out = tmp_path / "loop.json"
+    res = subprocess.run(
+        [sys.executable, "-m", "etcd_tpu_torch.tools.frames_kill_loop",
+         "--device", "cpu", "--groups", "12", "--tenants", "12",
+         "--hosts", "3", "--repeats", "2", "--busy", "0",
+         "--out", str(out)],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = [json.loads(ln) for ln in res.stdout.splitlines()]
+    summary = lines[-1]
+    assert [ln["turn"] for ln in lines[:-1]] == [0, 1]
+    assert summary["writes"] == 24 and summary["stalled"] == 0
+    assert summary["rcs"] == [0, 0, 0] and summary["lost"] == []
+    assert summary["read_back"] == 12
+    turns = json.loads(out.read_text())["turns"]
+    assert all(t["acked"] == 12 and t["stalled"] == [] for t in turns)
+    times = [s for t in turns for s in t["kill_to_ack_s"]]
+    assert times and all(s > 0 for s in times)
+    assert len(times) == summary["kill_to_ack_s"]["n"]
