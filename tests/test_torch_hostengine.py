@@ -461,13 +461,17 @@ class _DiesOnceItsAppendIsOut:
     frames up to and including its meta frame (the append), and nothing
     after it; then the host does nothing more and answers nothing. A
     frame stream to one peer is ordered, so that is a crash the wire
-    allows whatever the host's send order. With `lose_pay` the round's
+    allows whatever the host's send order. With `lose="pay"` the round's
     payload frames are lost on the way as well (a full send queue drops
-    its oldest frame, a reset connection the frame in flight)."""
+    its oldest frame, a reset connection the frame in flight); with
+    `lose="all"` none of the round's frames leaves the host (it dies
+    before its sends). The frames sent are only queued: the host's
+    transport must run on until they are delivered, as `stop()` drops
+    what is still queued."""
 
-    def __init__(self, eng, g, marker, lose_pay):
+    def __init__(self, eng, g, marker, lose="nothing"):
         self.eng, self.g, self.marker = eng, g, marker.encode()
-        self.lose_pay = lose_pay
+        self.lose = lose
         self.armed = self.dead = False
         self.entry = None          # (index, term) of the marked write
         self._buf = None
@@ -508,7 +512,8 @@ class _DiesOnceItsAppendIsOut:
             mine = [f for f in buf if f[0] == to]
             metas = [k for k, f in enumerate(mine) if f[1].get("t") == "meta"]
             for frame in mine[:metas[-1] + 1] if metas else []:
-                if not (self.lose_pay and frame[1].get("t") == "pay"):
+                if self.lose == "nothing" or (
+                        self.lose == "pay" and frame[1].get("t") != "pay"):
                     self._send(*frame)
         self.dead = True
 
@@ -531,13 +536,92 @@ def test_a_leader_killed_once_its_append_is_out_leaves_its_group_serving(
       payload and the new leader commits and applies it;
     - pay "lost": the payloads never arrive. A follower cuts an append
       back to the entries whose payloads it holds, so neither takes the
-      entry; the new leader overwrites it and the group goes on."""
+      entry; the new leader overwrites it and the group goes on.
+
+    The dead host is stopped only once both followers hold the append
+    (the entry's index and term) or have cut it: stopped before, it
+    dropped the frames still queued, and a new leader's own entries then
+    passed the index (test_a_leader_killed_before_its_append_is_out_
+    loses_that_write)."""
+    engines, lead, cut, survivors, cut0 = _kill_once_the_append_is_out(
+        tmp_path, "nothing" if pay == "sent" else "pay")
+    g = cut.g
+    i, t = cut.entry
+    try:
+        deadline = time.time() + 30
+        if pay == "sent":
+            while not all(int(e.l_last[g]) >= i and _term_at(e, g, i) == t
+                          for e in survivors):
+                assert time.time() < deadline, "the append did not reach both"
+                time.sleep(0.01)
+        else:
+            while not all(s.appends_cut > c for s, c in zip(survivors, cut0)):
+                assert time.time() < deadline, "the append was not cut by both"
+                time.sleep(0.01)
+        engines[lead].stop()
+        try:
+            t_ack = _put_retry(survivors[0], g, "/1/after", "v1",
+                               time.time() + 60, "after the leader's death")
+        except AssertionError as e:
+            raise AssertionError(
+                f"{e}; entry {cut.entry}, status by host "
+                f"{[s.status(g) for s in survivors]}, pulls sent "
+                f"{[s.pulls_sent for s in survivors]}") from None
+        assert survivors[0].leader_slot(g) != lead
+        want = {(g, "/1/after"): "v1"}
+        if pay == "sent":
+            want[(g, "/1/cut")] = "cut-marker"
+        _wait_values(survivors, want, timeout=60)
+        assert all(int(e.applied[g]) >= i for e in survivors), t_ack
+        if pay == "lost":
+            assert [_value(s, g, "/1/cut") for s in survivors] == [None] * 2
+    finally:
+        _stop_all(engines)
+
+
+def test_a_leader_killed_before_its_append_is_out_loses_that_write(
+        tmp_path):
+    """The crash point above with none of the round's frames delivered
+    (what `stop()` of the dead host's transport did to frames it still
+    had queued). No follower holds the write, so it is not committed and
+    is lost, as Raft allows for a write never acked. A write through a
+    survivor acks, and both survivors' logs pass the lost entry's index:
+    the index alone does not tell that a follower holds the entry; its
+    term there is the new leader's."""
+    engines, lead, cut, survivors, _ = _kill_once_the_append_is_out(
+        tmp_path, "all")
+    g = cut.g
+    i, t = cut.entry
+    try:
+        engines[lead].stop()
+        _put_retry(survivors[0], g, "/1/after", "v1", time.time() + 60,
+                   "after the leader's death")
+        _wait_values(survivors, {(g, "/1/after"): "v1"}, timeout=60)
+        for e in survivors:
+            assert int(e.l_last[g]) >= i
+            assert _term_at(e, g, i) > t
+            assert _value(e, g, "/1/cut") is None
+    finally:
+        _stop_all(engines)
+
+
+def _term_at(eng, g, i):
+    """The term of entry i in eng's log ring of group g (i in its
+    window)."""
+    return int(eng.l_ring[g, i % eng.l_ring.shape[1]])
+
+
+def _kill_once_the_append_is_out(tmp_path, lose):
+    """Three engines on the frames plane; the leader of group 1 dies at
+    the crash point of `_DiesOnceItsAppendIsOut`, its transport still
+    running. Returns (engines, the dead rank, its cut, the survivors,
+    their `appends_cut` before the crash)."""
     import threading
 
     ports = _free_ports(N)
     engines = [_mk(r, ports, str(tmp_path)) for r in range(N)]
     g = 1
-    cuts = [_DiesOnceItsAppendIsOut(e, g, "cut-marker", pay == "lost")
+    cuts = [_DiesOnceItsAppendIsOut(e, g, "cut-marker", lose)
             for e in engines]
     for e in engines:
         e.start()
@@ -559,35 +643,10 @@ def test_a_leader_killed_once_its_append_is_out_leaves_its_group_serving(
         while not cut.dead:
             assert time.time() < deadline, "the marked write was not admitted"
             time.sleep(0.01)
-        engines[lead].stop()
-        i, _ = cut.entry
-        deadline = time.time() + 30
-        if pay == "sent":
-            while not all(int(e.l_last[g]) >= i for e in survivors):
-                assert time.time() < deadline, "the append did not reach both"
-                time.sleep(0.01)
-        else:
-            while not all(s.appends_cut > c for s, c in zip(survivors, cut0)):
-                assert time.time() < deadline, "the append was not cut by both"
-                time.sleep(0.01)
-        try:
-            t_ack = _put_retry(survivors[0], g, "/1/after", "v1",
-                               time.time() + 60, "after the leader's death")
-        except AssertionError as e:
-            raise AssertionError(
-                f"{e}; entry {cut.entry}, status by host "
-                f"{[s.status(g) for s in survivors]}, pulls sent "
-                f"{[s.pulls_sent for s in survivors]}") from None
-        assert survivors[0].leader_slot(g) != lead
-        want = {(g, "/1/after"): "v1"}
-        if pay == "sent":
-            want[(g, "/1/cut")] = "cut-marker"
-        _wait_values(survivors, want, timeout=60)
-        assert all(int(e.applied[g]) >= i for e in survivors), t_ack
-        if pay == "lost":
-            assert [_value(s, g, "/1/cut") for s in survivors] == [None] * 2
-    finally:
+    except BaseException:
         _stop_all(engines)
+        raise
+    return engines, lead, cut, survivors, cut0
 
 
 def _put_or_none(eng, g, key, val):

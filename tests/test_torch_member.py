@@ -6,7 +6,8 @@ processes.
    stats, version, health, metrics, CORS, the cluster-version monitor,
    a member's peer URLs updated through the port's members API),
    compiled against the port (tests/port_tests.py), so their fixtures
-   build the port's members.
+   build the port's members; TestKeys::test_follower_serves_writes is a
+   hand mirror (below).
 2. Three `python -m etcd_tpu_torch` member processes from a static
    `--initial-cluster` bootstrap on localhost: a write through one member
    read back from the others (v2 and v3), `/v2/members` and
@@ -26,7 +27,7 @@ from port_tests import on_the_port
 
 _http = on_the_port("test_http")
 cluster = _http.cluster
-TestKeys, TestWatch, TestMeta = _http.TestKeys, _http.TestWatch, _http.TestMeta
+TestWatch, TestMeta = _http.TestWatch, _http.TestMeta
 test_cors_enforced = _http.test_cors_enforced
 test_cors_wildcard = _http.test_cors_wildcard
 test_version_monitor_decides_min_and_upgrades = \
@@ -35,6 +36,42 @@ test_member_update_peer_urls = _http.test_member_update_peer_urls
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORM = {"Content-Type": "application/x-www-form-urlencoded"}
+
+
+class TestKeys(_http.TestKeys):
+    def test_follower_serves_writes(self, cluster):
+        """Mirror of the JAX test of this name: each member takes a
+        write. The reference reads each back at once, without quorum,
+        through the next member, which need not have applied it yet (etcd
+        v2 serves such a read from that member's own store; see
+        tests/test_torch_bootstrap.py::
+        test_a_follower_serves_a_plain_read_from_its_own_store). Here the
+        member that acked reads it back at once, the next member without
+        quorum once it has applied it (polled, 10 s), then with quorum."""
+        for i in range(3):
+            st, _, body = _http.curl(cluster, "PUT", f"/v2/keys/via{i}",
+                                     _http.form({"value": str(i)}), FORM,
+                                     member=i)
+            assert st in (200, 201)
+            st, _, body = _http.curl(cluster, "GET", f"/v2/keys/via{i}",
+                                     member=i)
+            assert body["node"]["value"] == str(i)
+        for i in range(3):
+            nxt = (i + 1) % 3
+            deadline = time.monotonic() + 10
+            while True:
+                st, _, body = _http.curl(cluster, "GET", f"/v2/keys/via{i}",
+                                         member=nxt)
+                if st != 404:
+                    break
+                assert body["errorCode"] == 100, body
+                assert time.monotonic() < deadline, f"via{i} on m{nxt}"
+                time.sleep(0.05)
+            assert body["node"]["value"] == str(i)
+            st, _, body = _http.curl(cluster, "GET",
+                                     f"/v2/keys/via{i}?quorum=true",
+                                     member=nxt)
+            assert body["node"]["value"] == str(i)
 
 
 def test_the_http_cases_build_the_ports_members():
