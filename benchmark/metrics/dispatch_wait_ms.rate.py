@@ -1,0 +1,3 @@
+"""`dispatch_wait_ms` read the same way, as a per-layer metric of the
+cells whose end-to-end metric besides set-up is `acked_writes_per_s`."""
+from benchmark.metrics.dispatch_wait_ms import read  # noqa: F401

@@ -44,6 +44,11 @@ What differs from the JAX program:
   peers). With c0 = 0 and no comm a block holds every column and the
   functions are the unsharded round.
 - `tick` is a Python bool.
+- The hop's quiescence read is the round's one blocking read per hop:
+  `_quiet` adds the seconds the host spends in it to `_quiet.wait_s`
+  (under a lock: the cells of a device mesh are threads), the way
+  `ring_resolve.launches_by_variant` counts launches. The engine reads
+  its advance across a round as `phase_s["dispatch.wait"]`.
 - The JAX package donates the state and inbox buffers of its jitted
   rounds (`donate_safe`, which also keeps XLA:CPU off donation). Eager
   PyTorch has no donation: a round allocates its outputs, and a caller
@@ -51,6 +56,8 @@ What differs from the JAX program:
 """
 from __future__ import annotations
 
+import threading
+import time
 from typing import NamedTuple, Tuple
 
 import torch
@@ -682,11 +689,28 @@ def _quiet(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,
     cell of the mesh, so all blocks take the branch JAX's single
     `lax.cond` takes."""
     if blk.comm is None:
-        return bool(_quiet_pred(st, cfg, inbox, active, tick))
+        return _read_flag(_quiet_pred(st, cfg, inbox, active, tick))
     n_lead = blk.comm.sum_peers(
         (active & (st.state == LEADER)).sum(dim=1, dtype=I32))
     return not blk.comm.any(
-        ~_quiet_pred(st, cfg, inbox, active, tick, n_lead))
+        _read_flag(~_quiet_pred(st, cfg, inbox, active, tick, n_lead)))
+
+
+_wait_lock = threading.Lock()
+
+
+def _read_flag(flag: torch.Tensor) -> bool:
+    """`bool(flag)`, the host blocked until the card has computed it; the
+    seconds of the read alone go to `_quiet.wait_s`."""
+    t0 = time.perf_counter()
+    out = bool(flag)
+    dt = time.perf_counter() - t0
+    with _wait_lock:
+        _quiet.wait_s += dt
+    return out
+
+
+_quiet.wait_s = 0.0
 
 
 def _quiet_msgs(st: GroupState, cfg: KernelConfig, inbox: torch.Tensor,

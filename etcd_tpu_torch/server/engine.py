@@ -58,6 +58,7 @@ ring window, host snapshot-install beyond it).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import queue
@@ -130,6 +131,10 @@ def _unpack_multi(payload: bytes) -> List[bytes]:
         blobs.append(payload[off:off + ln])
         off += ln
     return blobs
+
+
+# What MultiEngine._range returns when no profiler runs.
+_NO_RANGE = contextlib.nullcontext()
 
 
 def _host(t) -> np.ndarray:
@@ -286,12 +291,15 @@ class _AckCounter:
     """Mutable ack tally. _apply_committed increments whichever tally it
     is handed — a shard worker's own, or the engine's synchronous-path
     one — so the counters need no locking (one writer each) and
-    MultiEngine.acked_requests sums them."""
+    MultiEngine.acked_requests sums them. `rids`, where it is a list,
+    collects the request ids the synchronous path triggered inline, for
+    the per-write stage counters."""
 
-    __slots__ = ("acked",)
+    __slots__ = ("acked", "rids")
 
     def __init__(self) -> None:
         self.acked = 0
+        self.rids: Optional[List[int]] = None
 
 
 class _AckBatch:
@@ -448,12 +456,23 @@ class MultiEngine:
         self._thread: Optional[threading.Thread] = None
         self.round_no = 0
         self.round_ms_ewma = 0.0   # smoothed wall time per round
-        # Cumulative per-phase wall time (seconds) of the round loop —
-        # the profile VERDICT r3 asked for (device/readback/fsync/apply/
-        # ack shares). Reset with reset_phase_profile(). The writer
-        # compartment's threads record "wal_fsync"/"wal_fsync[k]" here
-        # (one writer thread per key); the round loop records only the
-        # cheap "wal_submit" hand-off.
+        # Cumulative seconds since construction, never reset (a reader
+        # takes the difference of two copies); one thread at a time
+        # writes a key. Key families:
+        # - the round's phases, on the round thread: "stage", "dispatch",
+        #   "readback", "record", "wal_submit", "tail", and "apply" on
+        #   the synchronous path;
+        # - "apply" (a one-shard pool) or "apply[k]": applier shard k's
+        #   passes;
+        # - "wal_fsync" or "wal_fsync[k]": the WAL writer threads, which
+        #   hold this dict from construction on;
+        # - with the observability plane on (ETCD_TPU_OBS): the round's
+        #   seconds blocked on the card, "dispatch.wait" (a part of
+        #   dispatch + readback), and each write's path from submit to
+        #   ack, summed over the acked writes: "ack.queue", "ack.round",
+        #   "ack.apply", "ack.gate" and the COUNT of writes "ack.writes",
+        #   suffixed "[k]" when applier shard k acked them (unsuffixed:
+        #   the synchronous path). See _ack_account.
         self.phase_s: Dict[str, float] = {}
         # Observability plane (obs.py): per-compartment Prometheus
         # series with children pre-bound to this engine's shard
@@ -468,6 +487,18 @@ class MultiEngine:
         # admitted this round (round-thread-private, reset per round).
         self._last_admitted = 0
         self._trace_rids: List[int] = []
+        # Each client write's stamps, rid -> [t_submit, t_staged,
+        # t_admitted] (perf_counter), from do/submit_many until its
+        # waiter is triggered or given up; None with the plane off. One
+        # dict operation per access, so the GIL is the lock.
+        self._ack_t: Optional[Dict[int, list]] = (
+            {} if self.obs.enabled else None)
+        # When this round took _pending, and the seconds it spent reading
+        # gathered rows back (round-thread-private).
+        self._t_staged = 0.0
+        self._rows_wait = 0.0
+        # Host ranges on the profiler's clock (see _range).
+        self._prof = torch.autograd.profiler
         # The WAL compartment: submit() hands records to the writer
         # stage; acks gate on its durability watermark (wait_durable).
         # Constructed after phase_s — the writer threads profile into it.
@@ -495,6 +526,8 @@ class MultiEngine:
         # Acks from synchronous applies (conf rounds, pipeline off,
         # restore); shard workers tally into their own counters.
         self._acks = _AckCounter()
+        if self.obs.enabled:
+            self._acks.rids = []
         self._last_sync_scan = 0.0
         # g -> redeadline for the one in-flight SYNC allowed per tenant.
         self._sync_pending: Dict[int, float] = {}
@@ -855,6 +888,8 @@ class MultiEngine:
         # request timeout.
         self._fail_parked_reads("engine stopped")
         self.wal.close()
+        if self._ack_t is not None:
+            self._ack_t.clear()     # writes never acked leave no stamps
 
     # ------------------------------------------------------------------
     # applier pool (cfg.pipeline_applies, cfg.applier_shards)
@@ -901,6 +936,10 @@ class MultiEngine:
         # comparable with pre-pool captures), "apply[k]" per worker
         # otherwise — each key has exactly one writer thread.
         pkey = "apply" if len(self._appliers) == 1 else f"apply[{sh.idx}]"
+        rng = f"engine.{pkey}"
+        # The stage counters of the writes this shard acks ("[k]" always:
+        # the unsuffixed keys are the synchronous path's).
+        akey = f"[{sh.idx}]"
         o = self.obs if self.obs.enabled else None
         tr = self.obs.tracer
         while True:
@@ -912,34 +951,38 @@ class MultiEngine:
                 view = sh.q[0]       # stays queued while in progress
             t0 = time.perf_counter()
             try:
-                # Applies run ahead of the WAL pipeline; the acks they
-                # produce are collected and released only once the
-                # view's durability ticket clears the writer's
-                # watermark (ack-after-fsync, gated not ordered).
-                batch = _AckBatch()
-                self._apply_committed(trigger=True, view=view,
-                                      g_lo=sh.g_lo, g_hi=sh.g_hi,
-                                      acct=sh.acct, sink=batch)
-                if o:
-                    o.flight.mark(view[5], obs_mod.APPLIED)
-                if batch.acked or batch.items:
-                    t_gate = time.perf_counter()
-                    self.wal.wait_durable(view[4])
+                with self._range(rng):
+                    # Applies run ahead of the WAL pipeline; the acks
+                    # they produce are collected and released only once
+                    # the view's durability ticket clears the writer's
+                    # watermark (ack-after-fsync, gated not ordered).
+                    batch = _AckBatch()
+                    self._apply_committed(trigger=True, view=view,
+                                          g_lo=sh.g_lo, g_hi=sh.g_hi,
+                                          acct=sh.acct, sink=batch)
                     if o:
-                        o.h_ack_wait.observe(time.perf_counter()
-                                             - t_gate)
-                    if tr.every:
-                        for rid, _res in batch.items:
-                            tr.mark(rid, "durable", ticket=view[4])
-                    for rid, res in batch.items:
-                        self.wait.trigger(rid, res)
+                        o.flight.mark(view[5], obs_mod.APPLIED)
+                    if batch.acked or batch.items:
+                        t_gate = time.perf_counter()
+                        self.wal.wait_durable(view[4])
+                        if o:
+                            o.h_ack_wait.observe(time.perf_counter()
+                                                 - t_gate)
                         if tr.every:
-                            tr.mark(rid, "acked")
-                    sh.acct.acked += batch.acked
-                    if o:
-                        o.c_acked.inc(batch.acked)
-                        o.h_appl_batch[sh.idx].observe(batch.acked)
-                        o.flight.mark(view[5], obs_mod.ACKED)
+                            for rid, _res in batch.items:
+                                tr.mark(rid, "durable", ticket=view[4])
+                        for rid, res in batch.items:
+                            self.wait.trigger(rid, res)
+                            if tr.every:
+                                tr.mark(rid, "acked")
+                        sh.acct.acked += batch.acked
+                        if o:
+                            o.c_acked.inc(batch.acked)
+                            o.h_appl_batch[sh.idx].observe(batch.acked)
+                            o.flight.mark(view[5], obs_mod.ACKED)
+                            self._ack_account(
+                                akey, [rid for rid, _res in batch.items],
+                                t_gate, time.perf_counter())
             except Exception as e:  # noqa: BLE001 — re-raised at the seam
                 log.exception("engine applier shard %d failed", sh.idx)
                 self.obs.flight.dump(self.cfg.data_dir,
@@ -956,6 +999,45 @@ class MultiEngine:
             with sh.cv:
                 sh.q.popleft()
                 sh.cv.notify_all()
+
+    def _ack_account(self, sfx: str, rids: List[int], t_applied: float,
+                     t_acked: float) -> None:
+        """Pop the stamps of the writes whose waiters one apply pass just
+        triggered and add their stages to phase_s, the key suffix `sfx`
+        "[k]" for applier shard k and "" for the synchronous path:
+
+        - ack.queue  += t_staged - t_submit: waiting in _pending;
+        - ack.round  += t_admitted - t_staged: the round that admits it
+          (stage, dispatch, readback, record);
+        - ack.apply  += t_applied - t_admitted: the WAL hand-off, the
+          round's tail, the applier queue, a later round's commit if it
+          lags, and the apply pass;
+        - ack.gate   += t_acked - t_applied: the durability gate and the
+          waiter triggers;
+        - ack.writes += 1 for each: a count, kept in this dict of
+          seconds because readers window phase_s alone.
+
+        The boundaries are the Tracer's marks submit, admitted, applied
+        and acked, each taken once per call, round or pass."""
+        acks = self._ack_t
+        q = r = a = 0.0
+        n = 0
+        for rid in rids:
+            w = acks.pop(rid, None)
+            if w is None:
+                continue    # not a client write, or its client gave up
+            q += w[1] - w[0]
+            r += w[2] - w[1]
+            a += t_applied - w[2]
+            n += 1
+        if not n:
+            return
+        ph = self.phase_s
+        for key, v in (("ack.queue", q), ("ack.round", r), ("ack.apply", a),
+                       ("ack.gate", (t_acked - t_applied) * n),
+                       ("ack.writes", n)):
+            key += sfx
+            ph[key] = ph.get(key, 0.0) + v
 
     def _enqueue_apply(self, view: tuple) -> None:
         """Hand one round's committed work to every applier shard,
@@ -1065,9 +1147,12 @@ class MultiEngine:
             r = Request(**{**r.__dict__, "id": self.reqid.next()})
         obs_on = self.obs.enabled
         tr = self.obs.tracer
+        acks = self._ack_t
         if tr.every:
             tr.mark(r.id, "submit", g=g)
         q = self.wait.register(r.id)
+        if acks is not None:
+            acks[r.id] = [time.perf_counter(), 0.0, 0.0]
         payload = bytes([P_REQ]) + r.encode()
         with self._lock:
             # The decoded Request rides along so the live apply path never
@@ -1085,6 +1170,8 @@ class MultiEngine:
             if obs_on:
                 metrics.propose_failed.inc()
             self.wait.cancel(r.id)
+            if acks is not None:
+                acks.pop(r.id, None)
             raise errors.EtcdError(errors.ECODE_RAFT_INTERNAL,
                                    cause="request timed out",
                                    index=int(self.applied[g]))
@@ -1145,6 +1232,8 @@ class MultiEngine:
                                        cause=f"bad batch method {r.method}")
         obs_on = self.obs.enabled
         tr = self.obs.tracer
+        acks = self._ack_t
+        t_submit = time.perf_counter() if acks is not None else 0.0
         items = []
         queues = []
         for r in reqs:
@@ -1153,6 +1242,8 @@ class MultiEngine:
             if tr.every:
                 tr.mark(r.id, "submit", g=g)
             queues.append((r.id, self.wait.register(r.id)))
+            if acks is not None:
+                acks[r.id] = [t_submit, 0.0, 0.0]
             items.append((r.id, bytes([P_REQ]) + r.encode(), r))
         with self._lock:
             self._pending[g].extend(items)
@@ -1183,6 +1274,8 @@ class MultiEngine:
                     if obs_on:
                         metrics.propose_failed.inc()
                     self.wait.cancel(rid)
+                    if self._ack_t is not None:
+                        self._ack_t.pop(rid, None)
                     out.append(errors.EtcdError(
                         errors.ECODE_RAFT_INTERNAL,
                         cause="request timed out",
@@ -1562,6 +1655,8 @@ class MultiEngine:
                 rid = dq.popleft()[0]
                 self.wait.trigger(rid, errors.EtcdError(
                     errors.ECODE_RAFT_INTERNAL, cause="tenant removed"))
+                if self._ack_t is not None:
+                    self._ack_t.pop(rid, None)
             self._dirty.discard(g)
 
     def _stage_syncs(self, now: float) -> None:
@@ -1624,6 +1719,17 @@ class MultiEngine:
         prof.export_chrome_trace(path)
         return out
 
+    def _range(self, name: str):
+        """A host range `name` on the profiler's clock while a profiler
+        runs and the observability plane is on, so a trace names what
+        the host did across the card's idle gaps; otherwise a shared
+        no-op, at the cost of one flag test. A range wraps host-only
+        code: one around a launch would also put it on the device's
+        timeline (a gpu_user_annotation), where it reads as busy time."""
+        if self._ack_t is not None and self._prof._is_profiler_enabled:
+            return self._prof.record_function(name)
+        return _NO_RANGE
+
     # ------------------------------------------------------------------
     # the round
     # ------------------------------------------------------------------
@@ -1670,91 +1776,98 @@ class MultiEngine:
                 self._stage_syncs(now)
 
         # -- 1. stage proposals at known leaders --------------------------
-        prop_count = np.zeros(G, np.int32)
-        prop_slot = np.zeros(G, np.int32)
-        self._staged.clear()
-        with self._lock:
-            if self._dirty:
-                # One vectorized pass instead of a per-group leader_slot
-                # call (16k np calls/round at bench scale); .tolist() once
-                # beats 16k numpy scalar __getitem__s in the loop below.
-                lead_rows = (np.where(self.h_mask, self.h_state, 0)
-                             == _LEADER)
-                has_lead = lead_rows.any(axis=1).tolist()
-                lead_slots = lead_rows.argmax(axis=1).tolist()
-            B = self.cfg.batch_max
-            for g in list(self._dirty):
-                dq = self._pending[g]
-                if not dq:
-                    self._dirty.discard(g)
-                    continue
-                if not has_lead[g]:
-                    continue
-                s = lead_slots[g]
-                # Pack queued requests into at most E log entries of up to
-                # B requests each (group commit): conf changes stay
-                # singleton entries (their committed-boundary scan keys on
-                # the payload tag), plain requests coalesce.
-                ents: List[List[Tuple[int, bytes]]] = []
-                while dq and len(ents) < E:
-                    if dq[0][1] and dq[0][1][0] == P_CONF:
-                        ents.append([dq.popleft()])
-                        continue
-                    cur: List[Tuple[int, bytes]] = []
-                    nbytes = 0
-                    while (dq and len(cur) < B
-                           and nbytes < self.cfg.batch_bytes and dq[0][1]
-                           and dq[0][1][0] == P_REQ):
-                        nbytes += len(dq[0][1])
-                        cur.append(dq.popleft())
-                    if not cur:
-                        # Head is neither P_CONF nor P_REQ (empty or junk
-                        # tag): consume it or the group jams on count=0
-                        # entries forever; fail its waiter immediately
-                        # rather than letting the client ride out the
-                        # full request timeout.
-                        rid, junk = dq.popleft()[:2]
-                        log.error("engine: dropping untagged proposal "
-                                  "g=%d rid=%d len=%d", g, rid, len(junk))
-                        self.wait.trigger(rid, errors.EtcdError(
-                            errors.ECODE_RAFT_INTERNAL,
-                            cause="untagged proposal dropped"))
-                        continue
-                    ents.append(cur)
-                if not dq:
-                    self._dirty.discard(g)
-                self._staged[g] = (s, ents)
-        # One pass builds the staged index arrays; they feed the two
-        # scatter writes here AND the admission gather after the step
-        # (_staged is round-thread-private and not mutated in between).
-        # Batching replaces ~2*G numpy scalar stores at ~0.2 µs each.
-        staged_gs = staged_ss = None
-        if self._staged:
-            gs_l, ss_l, cnt_l = [], [], []
-            for g, (s, ents) in self._staged.items():
-                gs_l.append(g)
-                ss_l.append(s)
-                cnt_l.append(len(ents))
-            staged_gs = np.asarray(gs_l, np.int64)
-            staged_ss = np.asarray(ss_l, np.int64)
-            prop_count[staged_gs] = cnt_l
-            prop_slot[staged_gs] = ss_l
-
-        # -- 1b. read plane: snapshot how many parked quorum reads each
-        # group carries BEFORE the step is dispatched. A read parking
-        # after this point must not adopt this round's confirmation —
-        # an applier running under the device step could ack a write
-        # whose commit index exceeds the index this round captures, and
-        # serving such a late read at the captured index would miss that
-        # acked write. The snapshot pins exactly which reads this
-        # round's confirmation covers (see tests/test_read_plane.py).
-        read_take: Optional[Dict[int, int]] = None
-        if self._reads_waiting:
+        # (host only, as every range's code: see _range)
+        with self._range("engine.stage"):
+            prop_count = np.zeros(G, np.int32)
+            prop_slot = np.zeros(G, np.int32)
+            self._staged.clear()
             with self._lock:
-                if self._reads_waiting:
-                    read_take = {g: len(self._reads[g])
-                                 for g in self._read_dirty
-                                 if self._reads[g]}
+                if o:
+                    # Every write in _pending now was submitted before.
+                    self._t_staged = time.perf_counter()
+                if self._dirty:
+                    # One vectorized pass instead of a per-group leader_slot
+                    # call (16k np calls/round at bench scale); .tolist() once
+                    # beats 16k numpy scalar __getitem__s in the loop below.
+                    lead_rows = (np.where(self.h_mask, self.h_state, 0)
+                                 == _LEADER)
+                    has_lead = lead_rows.any(axis=1).tolist()
+                    lead_slots = lead_rows.argmax(axis=1).tolist()
+                B = self.cfg.batch_max
+                for g in list(self._dirty):
+                    dq = self._pending[g]
+                    if not dq:
+                        self._dirty.discard(g)
+                        continue
+                    if not has_lead[g]:
+                        continue
+                    s = lead_slots[g]
+                    # Pack queued requests into at most E log entries of up to
+                    # B requests each (group commit): conf changes stay
+                    # singleton entries (their committed-boundary scan keys on
+                    # the payload tag), plain requests coalesce.
+                    ents: List[List[Tuple[int, bytes]]] = []
+                    while dq and len(ents) < E:
+                        if dq[0][1] and dq[0][1][0] == P_CONF:
+                            ents.append([dq.popleft()])
+                            continue
+                        cur: List[Tuple[int, bytes]] = []
+                        nbytes = 0
+                        while (dq and len(cur) < B
+                               and nbytes < self.cfg.batch_bytes and dq[0][1]
+                               and dq[0][1][0] == P_REQ):
+                            nbytes += len(dq[0][1])
+                            cur.append(dq.popleft())
+                        if not cur:
+                            # Head is neither P_CONF nor P_REQ (empty or junk
+                            # tag): consume it or the group jams on count=0
+                            # entries forever; fail its waiter immediately
+                            # rather than letting the client ride out the
+                            # full request timeout.
+                            rid, junk = dq.popleft()[:2]
+                            log.error("engine: dropping untagged proposal "
+                                      "g=%d rid=%d len=%d", g, rid, len(junk))
+                            self.wait.trigger(rid, errors.EtcdError(
+                                errors.ECODE_RAFT_INTERNAL,
+                                cause="untagged proposal dropped"))
+                            if self._ack_t is not None:
+                                self._ack_t.pop(rid, None)
+                            continue
+                        ents.append(cur)
+                    if not dq:
+                        self._dirty.discard(g)
+                    self._staged[g] = (s, ents)
+            # One pass builds the staged index arrays; they feed the two
+            # scatter writes here AND the admission gather after the step
+            # (_staged is round-thread-private and not mutated in between).
+            # Batching replaces ~2*G numpy scalar stores at ~0.2 µs each.
+            staged_gs = staged_ss = None
+            if self._staged:
+                gs_l, ss_l, cnt_l = [], [], []
+                for g, (s, ents) in self._staged.items():
+                    gs_l.append(g)
+                    ss_l.append(s)
+                    cnt_l.append(len(ents))
+                staged_gs = np.asarray(gs_l, np.int64)
+                staged_ss = np.asarray(ss_l, np.int64)
+                prop_count[staged_gs] = cnt_l
+                prop_slot[staged_gs] = ss_l
+
+            # -- 1b. read plane: snapshot how many parked quorum reads each
+            # group carries BEFORE the step is dispatched. A read parking
+            # after this point must not adopt this round's confirmation —
+            # an applier running under the device step could ack a write
+            # whose commit index exceeds the index this round captures, and
+            # serving such a late read at the captured index would miss that
+            # acked write. The snapshot pins exactly which reads this
+            # round's confirmation covers (see tests/test_read_plane.py).
+            read_take: Optional[Dict[int, int]] = None
+            if self._reads_waiting:
+                with self._lock:
+                    if self._reads_waiting:
+                        read_take = {g: len(self._reads[g])
+                                     for g in self._read_dirty
+                                     if self._reads[g]}
 
         ph = self.phase_s
         t_ph = time.perf_counter()
@@ -1765,6 +1878,8 @@ class MultiEngine:
         # -- 2. the kernel round (step + routing; CUDA launches queue
         # asynchronously, the round reads one quiescence flag per hop) ----
         tick = (self.round_no % self.cfg.ticks_per_round) == 0
+        kernel = self._kernel
+        w_quiet = kernel._quiet.wait_s
         pc_d = torch.as_tensor(prop_count, device=self.device)
         ps_d = torch.as_tensor(prop_slot, device=self.device)
         flags_d = anh_d = None
@@ -1788,6 +1903,11 @@ class MultiEngine:
         d_dispatch = t_now - t_ph
         ph["dispatch"] = ph.get("dispatch", 0.0) + d_dispatch
         t_ph = t_now
+        # The round's seconds blocked on the card: the hops' quiescence
+        # reads (summed over the cells' threads on a mesh) and the
+        # readback's reads below.
+        d_wait = kernel._quiet.wait_s - w_quiet
+        self._rows_wait = 0.0
 
         # -- 3. read back round k (blocks until the device finishes;
         # torch releases the GIL while it waits, so the applier thread makes
@@ -1807,6 +1927,7 @@ class MultiEngine:
                 flags_np = flags_d.cpu().numpy()
                 t_now = time.perf_counter()
                 d_readback = t_now - t_ph
+                d_wait += d_readback     # the readback is its two reads
                 ph["readback"] = ph.get("readback", 0.0) + d_readback
                 t_ph = t_stepped = t_now
                 rec = self._compact_record_admit(flags_np, staged_gs,
@@ -1823,6 +1944,7 @@ class MultiEngine:
                  st.log_term, st.need_host))
             t_now = time.perf_counter()
             d_readback = t_now - t_ph
+            d_wait += d_readback         # reads alone (and the attestation)
             ph["readback"] = ph.get("readback", 0.0) + d_readback
             t_ph = t_stepped = t_now
 
@@ -1837,69 +1959,70 @@ class MultiEngine:
                     self._fail_violation(viol)
 
             # -- 5. durable round record ----------------------------------
-            rec = RoundRecord(round_no=self.round_no)
-            chg = (term != self.h_term) | (vote != self.h_vote) | \
-                  (commit != self.h_commit)
-            gi, pi = np.nonzero(chg)
-            rec.hs_g, rec.hs_p = gi.astype(np.uint32), pi.astype(np.uint16)
-            rec.hs_term = term[gi, pi].astype(np.uint32)
-            rec.hs_vote = vote[gi, pi].astype(np.uint16)
-            rec.hs_commit = commit[gi, pi].astype(np.uint32)
+            with self._range("engine.record"):
+                rec = RoundRecord(round_no=self.round_no)
+                chg = (term != self.h_term) | (vote != self.h_vote) | \
+                      (commit != self.h_commit)
+                gi, pi = np.nonzero(chg)
+                rec.hs_g, rec.hs_p = gi.astype(np.uint32), pi.astype(np.uint16)
+                rec.hs_term = term[gi, pi].astype(np.uint32)
+                rec.hs_vote = vote[gi, pi].astype(np.uint16)
+                rec.hs_commit = commit[gi, pi].astype(np.uint32)
 
-            last_chg = last != self.h_last
-            gi, pi = np.nonzero(last_chg)
-            rec.last_g = gi.astype(np.uint32)
-            rec.last_p = pi.astype(np.uint16)
-            rec.last_v = last[gi, pi].astype(np.uint32)
+                last_chg = last != self.h_last
+                gi, pi = np.nonzero(last_chg)
+                rec.last_g = gi.astype(np.uint32)
+                rec.last_p = pi.astype(np.uint16)
+                rec.last_v = last[gi, pi].astype(np.uint32)
 
-            # Ring diff in two stages: a vectorized per-row any-reduction
-            # finds the rows whose ring changed (SIMD compare — NOT the
-            # 3-axis np.nonzero over (G, P, W) that dominated host cost
-            # at 100k groups), then the slot-level diff runs only on
-            # those rows. The full compare is required for correctness:
-            # an equal-length conflict overwrite can change ring terms in
-            # a round where that row's term/vote/commit/last are ALL
-            # unchanged (the follower adopted the new leader's term in an
-            # earlier round), so a HardState-based row filter would
-            # silently drop the overwrite from the WAL and crash replay
-            # would resurrect superseded entries.
-            act_g, act_p = np.nonzero(np.any(ring != self.h_ring, axis=2))
-            if len(act_g):
-                sub = ring[act_g, act_p] != self.h_ring[act_g, act_p]
-                ai, wi = np.nonzero(sub)
-                gi, pi = act_g[ai], act_p[ai]
-                lastv = last[gi, pi]
-                # ring slot w holds absolute index
-                # i = last - ((last - w) mod W)
-                absi = lastv - ((lastv - wi) % W)
-                keep = absi >= 1
-                rec.ring_g = gi[keep].astype(np.uint32)
-                rec.ring_p = pi[keep].astype(np.uint16)
-                rec.ring_i = absi[keep].astype(np.uint32)
-                rec.ring_t = ring[gi[keep], pi[keep],
-                                  wi[keep]].astype(np.uint32)
+                # Ring diff in two stages: a vectorized per-row any-reduction
+                # finds the rows whose ring changed (SIMD compare — NOT the
+                # 3-axis np.nonzero over (G, P, W) that dominated host cost
+                # at 100k groups), then the slot-level diff runs only on
+                # those rows. The full compare is required for correctness:
+                # an equal-length conflict overwrite can change ring terms in
+                # a round where that row's term/vote/commit/last are ALL
+                # unchanged (the follower adopted the new leader's term in an
+                # earlier round), so a HardState-based row filter would
+                # silently drop the overwrite from the WAL and crash replay
+                # would resurrect superseded entries.
+                act_g, act_p = np.nonzero(np.any(ring != self.h_ring, axis=2))
+                if len(act_g):
+                    sub = ring[act_g, act_p] != self.h_ring[act_g, act_p]
+                    ai, wi = np.nonzero(sub)
+                    gi, pi = act_g[ai], act_p[ai]
+                    lastv = last[gi, pi]
+                    # ring slot w holds absolute index
+                    # i = last - ((last - w) mod W)
+                    absi = lastv - ((lastv - wi) % W)
+                    keep = absi >= 1
+                    rec.ring_g = gi[keep].astype(np.uint32)
+                    rec.ring_p = pi[keep].astype(np.uint16)
+                    rec.ring_i = absi[keep].astype(np.uint32)
+                    rec.ring_t = ring[gi[keep], pi[keep],
+                                      wi[keep]].astype(np.uint32)
 
-            # Index assignment for admitted proposals: a pre-existing
-            # leader admits in order at prev_last+1.. (its last_index can
-            # move this round ONLY by admission: it was already leader,
-            # so no no-op, and leaders ignore MsgApp).
-            if self._staged:
-                # Batch-gather the admission scalars: one fancy-indexed
-                # pull per array instead of 6 numpy scalar reads per
-                # staged group, reusing the index arrays built at staging
-                # time.
-                gs, ss = staged_gs, staged_ss
-                t_gs = term[gs, ss]
-                adm_l = np.where((state[gs, ss] == _LEADER)
-                                 & (t_gs == self.h_term[gs, ss]),
-                                 last[gs, ss] - self.h_last[gs, ss],
-                                 0).tolist()
-                self._admit_staged(rec, adm_l, t_gs.tolist(),
-                                   self.h_last[gs, ss].tolist())
+                # Index assignment for admitted proposals: a pre-existing
+                # leader admits in order at prev_last+1.. (its last_index can
+                # move this round ONLY by admission: it was already leader,
+                # so no no-op, and leaders ignore MsgApp).
+                if self._staged:
+                    # Batch-gather the admission scalars: one fancy-indexed
+                    # pull per array instead of 6 numpy scalar reads per
+                    # staged group, reusing the index arrays built at staging
+                    # time.
+                    gs, ss = staged_gs, staged_ss
+                    t_gs = term[gs, ss]
+                    adm_l = np.where((state[gs, ss] == _LEADER)
+                                     & (t_gs == self.h_term[gs, ss]),
+                                     last[gs, ss] - self.h_last[gs, ss],
+                                     0).tolist()
+                    self._admit_staged(rec, adm_l, t_gs.tolist(),
+                                       self.h_last[gs, ss].tolist())
 
-            self.h_term, self.h_vote, self.h_commit = term, vote, commit
-            self.h_state, self.h_last, self.h_ring = state, last, ring
-            self._force_full = False   # mirrors == device state again
+                self.h_term, self.h_vote, self.h_commit = term, vote, commit
+                self.h_state, self.h_last, self.h_ring = state, last, ring
+                self._force_full = False   # mirrors == device state again
             t_now = time.perf_counter()
             d_record = t_now - t_ph
             ph["record"] = ph.get("record", 0.0) + d_record
@@ -1927,6 +2050,8 @@ class MultiEngine:
         # precede the next dispatch, so the record is appended+fsynced
         # before the inline apply below (append_sync).
         if o:
+            ph["dispatch.wait"] = (ph.get("dispatch.wait", 0.0) + d_wait
+                                   + self._rows_wait)
             o.h_phase["dispatch"].observe(d_dispatch)
             o.h_phase["readback"].observe(d_readback)
             o.h_step.observe(d_dispatch + d_readback)
@@ -1939,10 +2064,11 @@ class MultiEngine:
                           or not self.cfg.pipeline_applies)
         if not rec.is_empty():
             t0 = time.perf_counter()
-            if sync_round or not self.cfg.pipeline_wal:
-                self.wal.append_sync(rec)
-            else:
-                self.wal.submit(rec)
+            with self._range("engine.wal_submit"):
+                if sync_round or not self.cfg.pipeline_wal:
+                    self.wal.append_sync(rec)
+                else:
+                    self.wal.submit(rec)
             ph["wal_submit"] = ph.get("wal_submit", 0.0) + \
                 (time.perf_counter() - t0)
             if o:
@@ -1964,8 +2090,14 @@ class MultiEngine:
                 o.flight.mark(r_no, obs_mod.ACKED)
                 if self._acks.acked > a0:
                     o.c_acked.inc(self._acks.acked - a0)
+                # append_sync fsynced the record before the apply: acked
+                # as applied, so nothing waits at the gate.
+                t_acked = time.perf_counter()
+                self._ack_account("", self._acks.rids, t_acked, t_acked)
+                self._acks.rids.clear()
         else:
-            self._enqueue_apply(self._commit_view())
+            with self._range("engine.tail"):
+                self._enqueue_apply(self._commit_view())
 
         # -- 6b. read plane: serve every ripe read whose group has
         # applied past its read index. Sync rounds serve their own reads
@@ -1973,7 +2105,8 @@ class MultiEngine:
         # pipelined rounds serve reads the applier shards ripened while
         # the device step ran — at most one round of extra latency.
         if self._ripe_waiting:
-            self._serve_ripe_reads()
+            with self._range("engine.tail"):
+                self._serve_ripe_reads()
 
         # -- 7. need_host: snapshot-install lagging followers (violations
         # already failed the round before anything was persisted or
@@ -2009,6 +2142,8 @@ class MultiEngine:
         insertion order, which both tails' scalar lists follow."""
         requeue: List[Tuple[int, List[Tuple[int, bytes]]]] = []
         tr = self.obs.tracer
+        acks = self._ack_t
+        t_staged, t_admitted = self._t_staged, time.perf_counter()
         n_admitted = 0
         for (g, (_, ents)), admitted, t, base in zip(
                 self._staged.items(), adm_l, t_l, base_l):
@@ -2022,6 +2157,14 @@ class MultiEngine:
                         if None not in reqs:
                             self.payload_reqs[(g, i, t)] = reqs
                     n_admitted += len(items)
+                    if acks is not None:
+                        # Stamped by the round that admits it, requeued
+                        # or not.
+                        for it in items:
+                            w = acks.get(it[0])
+                            if w is not None:
+                                w[1] = t_staged
+                                w[2] = t_admitted
                     if tr.every:
                         for it in items:
                             if tr.sampled(it[0]):
@@ -2052,11 +2195,12 @@ class MultiEngine:
         transfer is amortized by the batch it carries)."""
         kernel, torch = self._kernel, self._torch
         G, P, W = self.cfg.groups, self.cfg.peers, self.cfg.window
-        chg_g, chg_p = np.nonzero(flags)
-        lin = chg_g.astype(np.int64) * P + chg_p
-        if staged_gs is not None:
-            lin = np.unique(np.concatenate(
-                [lin, staged_gs * P + staged_ss]))
+        with self._range("engine.record"):    # host only: the rows to gather
+            chg_g, chg_p = np.nonzero(flags)
+            lin = chg_g.astype(np.int64) * P + chg_p
+            if staged_gs is not None:
+                lin = np.unique(np.concatenate(
+                    [lin, staged_gs * P + staged_ss]))
         K = len(lin)
         if K > self._compact_cap:
             return None
@@ -2065,61 +2209,65 @@ class MultiEngine:
             return rec
         gi = (lin // P).astype(np.int64)
         pi = (lin % P).astype(np.int64)
-        t_k, v_k, c_k, s_k, l_k, r_k = (
-            a.cpu().numpy() for a in kernel.gather_rows(
-                self.st, torch.as_tensor(gi, device=self.device),
-                torch.as_tensor(pi, device=self.device)))
+        rows_d = kernel.gather_rows(
+            self.st, torch.as_tensor(gi, device=self.device),
+            torch.as_tensor(pi, device=self.device))
+        t0 = time.perf_counter()
+        t_k, v_k, c_k, s_k, l_k, r_k = (a.cpu().numpy() for a in rows_d)
+        self._rows_wait = time.perf_counter() - t0
 
         def rows(bit):
             g, p = np.nonzero((flags & bit) != 0)
             return g, p, np.searchsorted(lin, g.astype(np.int64) * P + p)
 
-        g0, p0, pos0 = rows(kernel.CHG_HS)
-        rec.hs_g = g0.astype(np.uint32)
-        rec.hs_p = p0.astype(np.uint16)
-        rec.hs_term = t_k[pos0].astype(np.uint32)
-        rec.hs_vote = v_k[pos0].astype(np.uint16)
-        rec.hs_commit = c_k[pos0].astype(np.uint32)
+        with self._range("engine.record"):    # host only: the rows are here
+            g0, p0, pos0 = rows(kernel.CHG_HS)
+            rec.hs_g = g0.astype(np.uint32)
+            rec.hs_p = p0.astype(np.uint16)
+            rec.hs_term = t_k[pos0].astype(np.uint32)
+            rec.hs_vote = v_k[pos0].astype(np.uint16)
+            rec.hs_commit = c_k[pos0].astype(np.uint32)
 
-        g1, p1, pos1 = rows(kernel.CHG_LAST)
-        rec.last_g = g1.astype(np.uint32)
-        rec.last_p = p1.astype(np.uint16)
-        rec.last_v = l_k[pos1].astype(np.uint32)
+            g1, p1, pos1 = rows(kernel.CHG_LAST)
+            rec.last_g = g1.astype(np.uint32)
+            rec.last_p = p1.astype(np.uint16)
+            rec.last_v = l_k[pos1].astype(np.uint32)
 
-        g2, p2, pos2 = rows(kernel.CHG_RING)
-        if len(g2):
-            new_rows = r_k[pos2]                    # (n2, W)
-            sub = new_rows != self.h_ring[g2, p2]
-            ai, wi = np.nonzero(sub)
-            lastv = l_k[pos2][ai]
-            absi = lastv - ((lastv - wi) % W)
-            keep = absi >= 1
-            rec.ring_g = g2[ai][keep].astype(np.uint32)
-            rec.ring_p = p2[ai][keep].astype(np.uint16)
-            rec.ring_i = absi[keep].astype(np.uint32)
-            rec.ring_t = new_rows[ai, wi][keep].astype(np.uint32)
+            g2, p2, pos2 = rows(kernel.CHG_RING)
+            if len(g2):
+                new_rows = r_k[pos2]                    # (n2, W)
+                sub = new_rows != self.h_ring[g2, p2]
+                ai, wi = np.nonzero(sub)
+                lastv = l_k[pos2][ai]
+                absi = lastv - ((lastv - wi) % W)
+                keep = absi >= 1
+                rec.ring_g = g2[ai][keep].astype(np.uint32)
+                rec.ring_p = p2[ai][keep].astype(np.uint16)
+                rec.ring_i = absi[keep].astype(np.uint32)
+                rec.ring_t = new_rows[ai, wi][keep].astype(np.uint32)
 
-        if self._staged:
-            pos_s = np.searchsorted(lin, staged_gs * P + staged_ss)
-            t_gs = t_k[pos_s]
-            adm_l = np.where((s_k[pos_s] == _LEADER)
-                             & (t_gs == self.h_term[staged_gs, staged_ss]),
-                             l_k[pos_s]
-                             - self.h_last[staged_gs, staged_ss],
-                             0).tolist()
-            self._admit_staged(
-                rec, adm_l, t_gs.tolist(),
-                self.h_last[staged_gs, staged_ss].tolist())
+            if self._staged:
+                pos_s = np.searchsorted(lin, staged_gs * P + staged_ss)
+                t_gs = t_k[pos_s]
+                adm_l = np.where((s_k[pos_s] == _LEADER)
+                                 & (t_gs
+                                    == self.h_term[staged_gs, staged_ss]),
+                                 l_k[pos_s]
+                                 - self.h_last[staged_gs, staged_ss],
+                                 0).tolist()
+                self._admit_staged(
+                    rec, adm_l, t_gs.tolist(),
+                    self.h_last[staged_gs, staged_ss].tolist())
 
-        # Mirror update LAST (admission reads the pre-round mirrors).
-        # Gathered values are authoritative for every union row —
-        # writing back an unchanged staged row is a no-op.
-        self.h_term[gi, pi] = t_k
-        self.h_vote[gi, pi] = v_k
-        self.h_commit[gi, pi] = c_k
-        self.h_state[gi, pi] = s_k
-        self.h_last[gi, pi] = l_k
-        self.h_ring[gi, pi] = r_k
+            # Mirror update LAST (admission reads the pre-round mirrors).
+            # Gathered values are authoritative for every union row —
+            # writing back an unchanged staged row is a no-op.
+            self.h_term[gi, pi] = t_k
+            self.h_vote[gi, pi] = v_k
+            self.h_commit[gi, pi] = c_k
+            self.h_state[gi, pi] = s_k
+            self.h_last[gi, pi] = l_k
+            self.h_ring[gi, pi] = r_k
         return rec
 
     # ------------------------------------------------------------------
@@ -2297,6 +2445,8 @@ class MultiEngine:
                                 if r.method != METHOD_SYNC:
                                     acct.acked += 1
                                 self.wait.trigger(r.id, result)
+                                if acct.rids is not None:
+                                    acct.rids.append(r.id)
                                 if tr.every:
                                     tr.mark(r.id, "acked")
                     if fp:
@@ -2356,6 +2506,8 @@ class MultiEngine:
                     self.wait.trigger(rid, res)
                     if tr.every:
                         tr.mark(rid, "acked")
+            if sink is None and acct.rids is not None:
+                acct.rids.extend(frids)
 
     def _apply_request(self, g: int, r: Request):
         """Deterministic request->store mapping (reference applyRequest
