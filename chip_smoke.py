@@ -31,6 +31,24 @@ exit) if any phase fails:
    launch floor (the wrapper's whole path with an empty kernel,
    `ring_resolve.launch_floor`) in both loops; host µs per call. The A/B
    of two commits' kernels is `etcd_tpu_torch/ops/ring_resolve_timing.py`.
+2a. quiet_hop: the round's fused quiet hop (`ops/quiet_hop.py`, the
+   passes of `csrc/quiet_hop.cu` around the two `ring_resolve`
+   launches) against the PyTorch quiet hop, exactly equal: at
+   QUIET_SHAPES (the benchmark's (100000, 5/7, W 16, E 4), the CLI's
+   max_ents 8, the bench's latency, qread, expiry_wave and
+   shallow_clients, frames_soak's W=8, P=8 with E=8, a ragged group
+   count) on random quiescent states (`quiet_inputs`), tick on
+   and off, the forced heartbeat, with and without a drop mask; the
+   predicate pass against `_quiet_pred`, also on states made non-quiet;
+   at the benchmark's two shapes the hop's device time beside its
+   one-pass byte floor (`quiet_hop_bytes`), each pass's beside its own,
+   and the predicate pass against `_quiet_pred`'s ops; then 40 lockstep
+   `step_routed_compact` rounds (hops=3) at those shapes after 20 boot
+   rounds, equal after every round, every steady hop fused and each
+   pass launched once a hop. The engine's and the HTTP front's main
+   paths (C host code on and off) must launch every pass; the report's
+   `kernels` line has a `quiet_hop` entry with its times, floor and
+   launches by path.
 3. round: full-width rounds with the kernel and with
    `resolve=ring_resolve_ref` in lockstep, every output equal after every
    round, both call shapes' instantiations launched, at four shapes
@@ -241,6 +259,7 @@ import numpy as np
 G, P, W, E = 100_000, 5, 16, 4
 CLI_E = 8            # EngineConfig's max_ents, which the CLI leaves as it is
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+CUDA_SOURCES = ("ring_resolve", "quiet_hop")   # etcd_tpu_torch/ops/csrc
 SEED = 1234
 
 
@@ -250,11 +269,15 @@ def log(phase: str, t0: float, **kv) -> None:
 
 
 def _launches_reset():
-    """Zero ring_resolve's launch counts (a counted path starts)."""
+    """Zero ring_resolve's and the fused quiet hop's launch counts (a
+    counted path starts)."""
+    from etcd_tpu_torch.ops import quiet_hop
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     ring_resolve.launches = 0
     for k in ring_resolve.launches_by_variant:
         ring_resolve.launches_by_variant[k] = 0
+    for k in quiet_hop.launches:
+        quiet_hop.launches[k] = 0
 
 
 def _launches_read() -> tuple:
@@ -262,6 +285,21 @@ def _launches_read() -> tuple:
     instantiation (a counted path ends)."""
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     return ring_resolve.launches, dict(ring_resolve.launches_by_variant)
+
+
+def _require_quiet_hop(path: str, by_pass: dict) -> None:
+    """Raise unless every pass of the fused quiet hop was launched on
+    `path` (by_pass: `_quiet_launches()` at its end)."""
+    if not all(by_pass.values()):
+        raise AssertionError(f"the fused quiet hop's passes were not all "
+                             f"launched on {path}: {by_pass}")
+
+
+def _quiet_launches() -> dict:
+    """The fused quiet hop's passes launched since the reset, by pass (a
+    counted path ends)."""
+    from etcd_tpu_torch.ops import quiet_hop
+    return dict(quiet_hop.launches)
 
 
 # The entry points of the port's C that the loaders bind at import.
@@ -453,6 +491,412 @@ def phase_kernel(dev):
                      "bound_by": "bytes", "library_ms": library_ms}
     entry["max_abs_err"] = max_err
     return entry
+
+
+# phase_quiet_hop's kernel-level shapes: (label, groups, peers, W, E).
+# The benchmark's two (mt100k-r5, mt100k-r7), the CLI's max_ents 8, the
+# bench's smaller quiet rounds (latency, qread, expiry_wave,
+# shallow_clients), frames_soak's W=8 and max_ents 2, the widest the
+# passes take (P=8, E=8) and a group count that leaves a ragged block.
+QUIET_SHAPES = (
+    ("mt100k_r5", G, 5, W, E), ("mt100k_r7", G, 7, W, E),
+    ("cli", G, P, W, CLI_E), ("latency", 12_500, P, W, E),
+    ("qread", 8_192, P, W, E), ("expiry_wave", 4_096, P, W, E),
+    ("shallow_clients", 8, 3, W, CLI_E), ("frames_soak_w8", 12_500, P, 8, 2),
+    ("widest_p8_e8", 50_000, 8, W, 8), ("ragged", 99_991, 7, W, E))
+# (tick, force_hb, drop) variants of every shape.
+QUIET_VARIANTS = ((True, False, True), (False, False, False),
+                  (True, True, False), (False, True, True))
+
+
+def quiet_inputs(rng: np.random.RandomState, groups: int, peers: int,
+                 window: int, max_ents: int, tick: bool,
+                 election_tick: int = 10) -> tuple:
+    """Random (state fields, inbox, prop_count, prop_slot, drop) numpy
+    arrays on which `_quiet_pred` holds, for the differentials of the
+    fused passes against the PyTorch hop: at most one live leader a
+    group, no live candidate, no pending host work, every message at
+    its receiver's term and no vote traffic, and (with `tick`) no
+    follower due to campaign. Indices, terms and counts are drawn in
+    small ranges around each row's log so that every branch of the hop
+    is taken: appends that match, conflict (truncating, at or below the
+    commit), escape below the window or are below the commit; rejects in
+    probe and replicate; stale heartbeat responses; admission near half
+    the window; masked slots."""
+    from etcd_tpu_torch.ops.state import (CANDIDATE, FOLLOWER, LEADER, M_APP,
+                                          M_APP_RESP, M_HB, M_HB_RESP,
+                                          N_FIXED_FIELDS)
+    G, P, W, E = groups, peers, window, max_ents
+    F = N_FIXED_FIELDS + E
+    r = rng.randint
+    mask = rng.rand(G, P) < 0.85
+    ldr = np.where(rng.rand(G) < 0.9, r(0, P, G), -1)
+    state = np.full((G, P), FOLLOWER, np.int32)
+    state[np.arange(G), np.maximum(ldr, 0)] = np.where(ldr >= 0, LEADER,
+                                                       FOLLOWER)
+    # A slot out of the mask may hold any role.
+    state = np.where(mask, state, r(0, 3, (G, P))).astype(np.int32)
+    term = (r(1, 4, G)[:, None] + (rng.rand(G, P) < 0.1)).astype(np.int32)
+    is_l = state == LEADER
+    elapsed = np.where(is_l, r(0, 6, (G, P)),
+                       r(0, election_tick - 1 if tick else 30, (G, P)))
+    last = r(0, 40, (G, P))
+    commit = np.where(rng.rand(G, P) < 0.05, last + r(1, 3, (G, P)),
+                      (last * rng.rand(G, P)).astype(np.int64))
+    # The leader's tail near half the window (admission near its room).
+    log_term = r(0, 5, (G, P, W))
+    match = r(0, 44, (G, P, P))
+    nxt = np.where(rng.rand(G, P, P) < 0.8, match + 1 + r(0, 8, (G, P, P)),
+                   r(-1, 46, (G, P, P)))
+    ack_age = np.where(rng.rand(G, P, P) < 0.02, (1 << 20) - r(0, 2,
+                                                                (G, P, P)),
+                       r(0, 12, (G, P, P)))
+    st = {
+        "term": term, "vote": r(0, P + 1, (G, P)), "commit": commit,
+        "lead": r(0, P + 1, (G, P)), "state": state, "elapsed": elapsed,
+        "prng": r(1, 2 ** 31, (G, P)).astype(np.uint32),
+        "log_term": log_term, "last_index": last, "match": match,
+        "next": nxt, "pr_state": r(0, 2, (G, P, P)),
+        "paused": rng.rand(G, P, P) < 0.3, "ack_age": ack_age,
+        "votes": r(0, 3, (G, P, P)), "peer_mask": mask,
+        "need_host": np.zeros((G, P), np.int32)}
+    st = {k: (v if k in ("prng", "paused", "peer_mask")
+              else v.astype(np.int32)) for k, v in st.items()}
+
+    inbox = np.zeros((G, P, P, F), np.int32)
+    kinds = np.array([0, 0, M_APP, M_APP_RESP, M_HB, M_HB_RESP])
+    mtype = kinds[r(0, len(kinds), (G, P, P))]
+    inbox[..., 0] = mtype
+    inbox[..., 1] = term[:, :, None]
+    last3 = last[:, :, None]
+    index = np.clip(last3 + r(-W - 3, 6, (G, P, P)), 0, None)
+    inbox[..., 2] = np.where(rng.rand(G, P, P) < 0.1, r(0, 50, (G, P, P)),
+                             index)
+    # Log terms that match the receiver's ring more often than not.
+    ring_t = np.take_along_axis(log_term, inbox[..., 2] % W, axis=2)
+    inbox[..., 3] = np.where(rng.rand(G, P, P) < 0.7, ring_t,
+                             r(0, 5, (G, P, P)))
+    inbox[..., 4] = r(0, 50, (G, P, P))
+    inbox[..., 5] = (rng.rand(G, P, P) < 0.3) & (mtype == M_APP_RESP)
+    inbox[..., 6] = r(0, 45, (G, P, P))
+    inbox[..., 7] = np.where(mtype == M_APP, r(0, E + 1, (G, P, P)), 0)
+    # Entry terms equal to the receiver's ring but, now and then, one.
+    slots = (inbox[..., 2:3] + 1 + np.arange(E)) % W
+    ents = np.take_along_axis(log_term[:, :, None, :].repeat(P, 2), slots,
+                              axis=3)
+    flip = rng.rand(G, P, P, E) < 0.08
+    inbox[..., N_FIXED_FIELDS:] = np.where(flip, r(0, 5, (G, P, P, E)),
+                                           ents)
+    prop_count = r(0, E + 3, G).astype(np.int32)
+    prop_slot = np.where(rng.rand(G) < 0.9, np.maximum(ldr, 0),
+                         r(0, P, G)).astype(np.int32)
+    drop = (rng.rand(G, P, P, 1) < 0.9).astype(np.int32)
+    if CANDIDATE in state[mask]:
+        raise AssertionError("quiet_inputs: a live candidate")
+    return st, inbox, prop_count, prop_slot, drop
+
+
+def quiet_hop_bytes(g, p, w, e) -> int:
+    """Least device-memory bytes of a whole quiet hop, its predicate
+    included: every array the hop reads read once and every array it
+    writes written once, as a single pass would. The hop's device time
+    is held against this floor."""
+    gp, gpp = g * p, g * p * p
+    mail = 4 * gpp * (8 + e)
+    # inbox; term, state, elapsed, lead, commit, last_index, need_host;
+    # peer_mask; log_term; match, next, pr_state, ack_age; paused;
+    # prop_count, prop_slot
+    read = mail + 28 * gp + gp + 4 * gp * w + 16 * gpp + gpp + 8 * g
+    # routed inbox; elapsed, lead, commit, last_index, need_host;
+    # log_term; match, next, pr_state, ack_age; paused
+    written = mail + 20 * gp + 4 * gp * w + 16 * gpp + gpp
+    return read + written
+
+
+def quiet_pass_bytes(g, p, w, e) -> dict:
+    """Least device-memory bytes of each fused pass: the words it must
+    read and write, each once (the two ring_resolve launches between
+    them are held against their own floor). The passes re-read state
+    between them, so these sum to more than `quiet_hop_bytes`: a
+    breakdown, not the hop's floor."""
+    gp, gpp, f = g * p, g * p * p, 8 + e
+    mail = 4 * gpp * f
+    return {
+        # types and terms of every message; term, state, elapsed,
+        # need_host, mask
+        "qh_pred": 8 * gpp + 16 * gp + gp,
+        # mailbox, 7 words, mask, the ring word at the append's index,
+        # match/next/pr/ack_age and paused in and out; elapsed, lead,
+        # need_host, idx_j, sel, hb_fire, resp out
+        "qh_msgs": mail + 28 * gp + gp + 4 * gp + 2 * (16 * gpp + gpp)
+        + 12 * gp + 4 * gp * e + 8 * gp + 16 * gp,
+        # the chosen message, my_t, 7 words, mask, props, ring,
+        # match/next/pr, paused; ring, last, commit, need_host,
+        # match/next, paused, prev, plan out
+        "qh_commit": 4 * gp * f + 4 * gp * e + 28 * gp + gp + 8 * g
+        + 4 * gp * w + 12 * gpp + gpp + 4 * gp * w + 12 * gp + 8 * gpp
+        + gpp + 4 * gpp + 8 * gp,
+        # plan, sel, resp, term, commit, ring, prev, prev_t, match; the
+        # routed mailbox
+        "qh_route": 8 * gp + 4 * gp + 16 * gp + 8 * gp + 4 * gp * w
+        + 12 * gpp + mail,
+    }
+
+
+def _quiet_case(dev, cfg, arrays):
+    """(state, inbox, prop_count, prop_slot, drop) on `dev` from
+    quiet_inputs' numpy arrays."""
+    import torch
+    from etcd_tpu_torch.ops.state import state_from_numpy
+    st_np, ib, pc, ps, drop = arrays
+    return (state_from_numpy(st_np, dev),
+            *(torch.from_numpy(a).to(dev) for a in (ib, pc, ps, drop)))
+
+
+def _pytorch_quiet_hop(cfg, st, ib, pc, ps, tick, force_hb, drop):
+    """The PyTorch hop the fused passes replace: `_step_body` with the
+    quiet branch and the plain resolve, `route_local`, the drop mask."""
+    from etcd_tpu_torch.ops import kernel
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve_ref
+    s, out = kernel._step_body(cfg, st, ib, pc, ps, tick, quiet=True,
+                               force_hb=force_hb, resolve=ring_resolve_ref)
+    routed = kernel.route_local(out)
+    return s, routed if drop is None else routed * drop
+
+
+def _fields_equal(a, b, ib_a, ib_b) -> list:
+    """The fields of two (state, inbox) results that differ."""
+    import torch
+    from etcd_tpu_torch.ops.state import GroupState
+    bad = [n for n, x, y in zip(GroupState._fields, a, b)
+           if not torch.equal(x, y)]
+    return bad + ([] if torch.equal(ib_a, ib_b) else ["inbox"])
+
+
+def phase_quiet_hop(dev, shapes=QUIET_SHAPES, round_groups=G, rounds=40,
+                    warmup=20):
+    """The fused quiet hop (ops/quiet_hop.py, csrc/quiet_hop.cu) against
+    the PyTorch quiet hop on the card, exactly equal:
+
+    - kernel level, at every QUIET_SHAPES shape and QUIET_VARIANTS
+      variant, on random quiescent states (quiet_inputs): the
+      predicate pass agrees with `_quiet_pred` (also on states made
+      non-quiet in each of its six ways), and every state field and the
+      routed inbox equal;
+    - each pass's device time (torch.profiler over 20 hops) beside its
+      byte floor, and a hop's time, fused and PyTorch, at the benchmark's
+      two shapes;
+    - round level, `step_routed_compact` (hops=3) at mt100k-r5's and
+      mt100k-r7's shapes in lockstep with the PyTorch hop (the plain
+      resolve): `warmup` boot rounds, then `rounds` rounds whose every
+      hop is fused, equal after every round, each pass launched once a
+      hop.
+
+    Returns the report's kernel entry: the first shape's hop time (a
+    CUDA-event loop, host path included), device time (the profiler's
+    passes and resolves) and one-pass byte floor (`quiet_hop_bytes`),
+    each timed shape's beside it, and the passes this phase launched."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from etcd_tpu_torch.ops import kernel, quiet_hop
+    from etcd_tpu_torch.ops.ring_resolve import ring_resolve_ref
+    from etcd_tpu_torch.ops.ring_resolve_timing import cuda_ms
+    from etcd_tpu_torch.ops.state import (KernelConfig, LEADER, init_state,
+                                          state_from_numpy)
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(SEED)
+    timed, by_shape = {}, {}
+    launches0 = dict(quiet_hop.launches)
+    for label, g, p, w, e in shapes:
+        cfg = KernelConfig(groups=g, peers=p, window=w, max_ents=e,
+                           heartbeat_tick=3)
+        arrays = quiet_inputs(rng, g, p, w, e, tick=True)
+        st, ib, pc, ps, drop = _quiet_case(dev, cfg, arrays)
+        for tick, force_hb, with_drop in QUIET_VARIANTS:
+            dm = drop if with_drop else None
+            flag = quiet_hop.quiet_flag(cfg, st, ib, tick)
+            want = kernel._quiet_pred(st, cfg, ib, st.peer_mask, tick)
+            if int(flag) != 1 or not bool(want):
+                raise AssertionError(f"quiet_hop {label}: flag "
+                                     f"{int(flag)}, _quiet_pred "
+                                     f"{bool(want)}")
+            got = quiet_hop.fused_hop(cfg, st, ib, pc, ps, tick, force_hb,
+                                      dm)
+            ref = _pytorch_quiet_hop(cfg, st, ib, pc, ps, tick, force_hb,
+                                     dm)
+            torch.cuda.synchronize()
+            bad = _fields_equal(got[0], ref[0], got[1], ref[1])
+            if bad:
+                raise AssertionError(f"quiet_hop {label} tick={tick} "
+                                     f"force_hb={force_hb} drop="
+                                     f"{with_drop}: {bad} differ")
+        # The predicate on states each made non-quiet one way.
+        st_np = arrays[0]
+        for way in range(6):
+            s2 = {k: v.copy() for k, v in st_np.items()}
+            ib2 = arrays[1].copy()
+            gi, pi = int(rng.randint(g)), int(rng.randint(p))
+            if way == 0:
+                s2["need_host"][gi, pi] = 1
+            elif way == 1:
+                s2["state"][gi, pi], s2["peer_mask"][gi, pi] = 1, True
+            elif way == 2:
+                ib2[gi, pi, 0, 0] = 3
+            elif way == 3:
+                ib2[gi, pi, 0, :2] = (2, 99)
+            elif way == 4:
+                s2["state"][gi, :], s2["peer_mask"][gi, :] = LEADER, True
+            else:
+                s2["state"][gi, pi], s2["peer_mask"][gi, pi] = 0, True
+                s2["elapsed"][gi, pi] = cfg.election_tick
+            st2 = state_from_numpy(s2, dev)
+            ib2 = torch.from_numpy(ib2).to(dev)
+            want = bool(kernel._quiet_pred(st2, cfg, ib2, st2.peer_mask,
+                                           True))
+            got = int(quiet_hop.quiet_flag(cfg, st2, ib2, True))
+            if want != bool(got) or (want and p > 1):
+                raise AssertionError(f"quiet_hop {label}: predicate pass "
+                                     f"{got} != _quiet_pred {want} "
+                                     f"(way {way})")
+        log("quiet_hop_equal", t0, shape=label, groups=g, peers=p, window=w,
+            max_ents=e, variants=len(QUIET_VARIANTS), equal=True)
+        if label in ("mt100k_r5", "mt100k_r7"):
+            timed[label] = (cfg, st, ib, pc, ps)
+
+    for label, (cfg, st, ib, pc, ps) in timed.items():
+        g, p, w, e = cfg.groups, cfg.peers, cfg.window, cfg.max_ents
+        floor = quiet_pass_bytes(g, p, w, e)
+
+        def fused():
+            quiet_hop.quiet_flag(cfg, st, ib, True)
+            return quiet_hop.fused_hop(cfg, st, ib, pc, ps, True)
+
+        def pytorch():
+            kernel._quiet_pred(st, cfg, ib, st.peer_mask, True)
+            return _pytorch_quiet_hop(cfg, st, ib, pc, ps, True, False,
+                                      None)
+        fused_ms, pytorch_ms = cuda_ms(fused, 20), cuda_ms(pytorch, 5)
+        # The predicate alone, which every hop on the card runs (the
+        # full path's hops too): the pass against `_quiet_pred`'s ops.
+        pred_ms_fused = cuda_ms(
+            lambda: quiet_hop.quiet_flag(cfg, st, ib, True), 20)
+        pred_ms_pytorch = cuda_ms(
+            lambda: kernel._quiet_pred(st, cfg, ib, st.peer_mask, True), 20)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            kernel._quiet_pred(st, cfg, ib, st.peer_mask, True)
+            torch.cuda.synchronize()
+        pred_ops = [ev for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fused()
+            torch.cuda.synchronize()
+        by = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                name = next((k for k in (*floor, "ring_resolve")
+                             if k in ev.name), "other")
+                by[name] = by.get(name, 0.0) + ev.time_range.elapsed_us()
+        passes = {}
+        for name, us in by.items():
+            ms = us / 20 / 1e3 / (2 if name == "ring_resolve" else 1)
+            row = {"device_ms": ms}
+            if name in floor:
+                bound = floor[name] / HBM_BYTES_PER_S * 1e3
+                row.update(bytes=floor[name], bound_ms=bound,
+                           share_of_bound=bound / ms)
+            passes[name] = row
+        hop_bytes = quiet_hop_bytes(g, p, w, e)
+        device_ms = sum(v["device_ms"] * (2 if k == "ring_resolve" else 1)
+                        for k, v in passes.items())
+        hop = {"shape": [g, p, w, e], "ms": fused_ms,
+               "device_ms": device_ms, "plain_ms": pytorch_ms,
+               "bytes": hop_bytes,
+               "bound_ms": hop_bytes / HBM_BYTES_PER_S * 1e3,
+               "pred_ms": pred_ms_fused, "plain_pred_ms": pred_ms_pytorch,
+               "plain_pred_device_ops": len(pred_ops),
+               "plain_pred_device_ms": sum(ev.time_range.elapsed_us()
+                                           for ev in pred_ops) / 1e3}
+        by_shape[label] = hop
+        pass_bytes = sum(floor.values())
+        log("quiet_hop_time", t0, shape=label, groups=g, peers=p,
+            hop_ms_fused=fused_ms, hop_ms_pytorch=pytorch_ms,
+            passes=passes, floor_bytes=hop_bytes,
+            floor_ms=hop["bound_ms"], device_ms=device_ms,
+            share_of_bound=hop["bound_ms"] / device_ms,
+            pass_floor_bytes=pass_bytes,
+            pass_floor_ms=pass_bytes / HBM_BYTES_PER_S * 1e3,
+            pred_ms_fused=pred_ms_fused, pred_ms_pytorch=pred_ms_pytorch,
+            pred_device_ops_pytorch=hop["plain_pred_device_ops"],
+            pred_device_ms_pytorch=hop["plain_pred_device_ms"])
+    del timed
+
+    for peers in (5, 7):
+        cfg = KernelConfig(groups=round_groups, peers=peers, window=W,
+                           max_ents=E, heartbeat_tick=3)
+        st_k = init_state(cfg, stagger=True, device=dev)
+        st_p = init_state(cfg, stagger=True, device=dev)
+        ib_k = torch.zeros((round_groups, peers, peers, cfg.fields),
+                           dtype=torch.int32, device=dev)
+        ib_p = ib_k.clone()
+        counts = dict.fromkeys(kernel.hop_counts, 0)
+        launched = dict.fromkeys(quiet_hop.launches, 0)
+        t_f = t_p = 0.0
+        for r in range(warmup + rounds):
+            lead = (st_k.state == LEADER) & st_k.peer_mask
+            props = (torch.where(lead.any(dim=1), E, 0).to(torch.int32),
+                     kernel._first_true(lead, dim=1))
+            h0, q0 = dict(kernel.hop_counts), dict(quiet_hop.launches)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out_k = kernel.step_routed_compact(cfg, st_k, ib_k, *props,
+                                               True, None, 3)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            d = {k: kernel.hop_counts[k] - h0[k] for k in h0}
+            dq = {k: quiet_hop.launches[k] - q0[k] for k in q0}
+            out_p = kernel.step_routed_compact(cfg, st_p, ib_p, *props,
+                                               True, None, 3,
+                                               resolve=ring_resolve_ref)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            (st_k, ib_k), (st_p, ib_p) = out_k[:2], out_p[:2]
+            if not (_states_equal(st_k, st_p)
+                    and _states_equal(out_k[1:], out_p[1:])):
+                raise AssertionError(f"quiet_hop round P={peers}: fused "
+                                     f"round != PyTorch at {r}")
+            if r >= warmup:
+                for k in d:
+                    counts[k] += d[k]
+                for k in dq:
+                    launched[k] += dq[k]
+                t_f += t2 - t1
+                t_p += t3 - t2
+        share = counts["fused"] / max(1, sum(counts.values()))
+        if counts["fused"] != 3 * rounds:
+            raise AssertionError(f"quiet_hop round P={peers}: hops "
+                                 f"{counts}, not {3 * rounds} fused")
+        if launched != dict.fromkeys(launched, 3 * rounds):
+            raise AssertionError(f"quiet_hop round P={peers}: passes "
+                                 f"launched {launched} in {3 * rounds} "
+                                 f"fused hops")
+        log("quiet_hop_round", t0, groups=round_groups, peers=peers, hops=3,
+            rounds=rounds, warmup=warmup, equal_to_pytorch=True,
+            hop_counts=counts, launches_by_pass=launched,
+            fused_hop_share=100.0 * share,
+            ms_per_round_fused=t_f / rounds * 1e3,
+            ms_per_round_pytorch=t_p / rounds * 1e3,
+            commits=int(st_k.commit.amax(dim=1).sum()))
+    first = by_shape.get("mt100k_r5", {})
+    return {"name": "quiet_hop", "route": "cuda",
+            "source": "etcd_tpu_torch/ops/csrc/quiet_hop.cu",
+            "replaces": "etcd_tpu_torch/ops/kernel.py:_hop (the quiet "
+                        "branch of _step_body and route_local)",
+            **first, "bound_by": "bytes", "by_shape": by_shape,
+            "launches_by_pass": {k: quiet_hop.launches[k] - launches0[k]
+                                 for k in launches0}}
 
 
 def _sync(dev) -> None:
@@ -762,7 +1206,8 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
     """The serving path through MultiEngine's public entry points, on one
     device or (`mesh`) sharded over a device mesh, with the C host code
     (codecs and store) on or off. Returns the ring_resolve launches
-    counted across it, in all and by instantiation."""
+    counted across it, in all and by instantiation, and the fused quiet
+    hop's by pass."""
     from etcd_tpu_torch.ops.ring_resolve import ring_resolve
     from etcd_tpu_torch.server.engine import EngineConfig, MultiEngine
     from etcd_tpu_torch.server.request import Request
@@ -838,6 +1283,7 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
             raise eng.failed
         launches = ring_resolve.launches   # the main path ends here
         by_variant = dict(ring_resolve.launches_by_variant)
+        quiet = _quiet_launches()
         ms = np.array(sorted(lat.values())) * 1e3
         log(f"{name}_serve", t0, native=native, store=store_cls,
             acked=len(lat), write_s=t_w,
@@ -845,7 +1291,7 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
             rounds_per_s=rounds_w / t_w, ack_p50_ms=float(np.percentile(ms, 50)),
             ack_p99_ms=float(np.percentile(ms, 99)), quorum_gets=quorum_gets,
             quorum_get_s=t_q, launches=launches,
-            launches_by_variant=by_variant,
+            launches_by_variant=by_variant, quiet_hop_launches=quiet,
             phase_s={k: round(v, 4) for k, v in eng.phase_s.items()},
             comm=None if eng.comm_stats is None
             else eng.comm_stats.as_dict())
@@ -856,7 +1302,7 @@ def phase_engine(dev, groups=G, tenants=1000, quorum_gets=100, mesh=None,
         if missing:
             raise AssertionError(f"acked writes lost on restart: {missing[:5]}")
         log(f"{name}_restart", t0, read_back=len(gs))
-    return launches, by_variant
+    return launches, by_variant, quiet
 
 
 FORM = {"Content-Type": "application/x-www-form-urlencoded"}
@@ -1054,7 +1500,8 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
        quorum GET and /batch over real sockets; returns the ring_resolve
        launches counted across this leg, in all and by instantiation
        (and, third, the restarted server's of leg 3, from its stop
-       line);
+       line), and, fourth, the fused quiet hop's across this leg by
+       pass;
     2. `python -m etcd_tpu_torch` and `python -m
        etcd_tpu_torch.server.ingress` as processes; writes and a CAS
        race through the ingress; every batchframe sent was answered;
@@ -1125,13 +1572,15 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
             raise srv.engine.failed
         launches = ring_resolve.launches   # the main path ends here
         by_variant = dict(ring_resolve.launches_by_variant)
+        quiet = _quiet_launches()
         steps.done("stop")
         _leg(t0, "in_process", lat, write_s, rounds, steps, native=native,
              store=store_cls,
              phase_s={k: round(v, 4) for k, v in srv.engine.phase_s.items()},
              groups_with_leader=status["groups_with_leader"],
              quorum_gets=quorum_gets, batch_statuses=[201, 412],
-             launches=launches, launches_by_variant=by_variant)
+             launches=launches, launches_by_variant=by_variant,
+             quiet_hop_launches=quiet)
 
         # Leg 2: the CLI and the ingress, as processes; the server
         # traces 1 request in TRACE_EVERY (its /debug/traces).
@@ -1265,7 +1714,7 @@ def phase_http_front(dev, groups=G, tenants=1000, quorum_gets=100,
                 if p.poll() is None:
                     p.kill()
                     p.wait(timeout=60)
-    return launches, by_variant, restarted
+    return launches, by_variant, restarted, quiet
 
 
 # -- suite_card: the JAX package's behavioural suite at full width -----------
@@ -3764,7 +4213,8 @@ def ptxas_by_kernel(lines) -> dict:
         if line.startswith("Compiling entry function"):
             name = line.split("'")[1]
             for short in ("ring_resolve_tilesILi4E", "ring_resolve_tilesILi5E",
-                          "ring_resolve_tilesILi0E", "ring_resolve_empty"):
+                          "ring_resolve_tilesILi0E", "ring_resolve_empty",
+                          "qh_pred", "qh_msgs", "qh_commit", "qh_route"):
                 if short in name:
                     name = short.replace("ILi", "<").replace("E", ">")
         elif line.startswith("Used") and name:
@@ -3803,14 +4253,18 @@ def main() -> int:
         raise AssertionError(f"the C host code did not build on this "
                              f"machine (it needs cc and Python.h): {flags}")
     with ThreadPoolExecutor() as pool:   # one nvcc per build, all at once
-        build = pool.submit(cuda_build.build, "ring_resolve")
-        ptxas = pool.submit(cuda_build.ptxas_report, "ring_resolve").result()
-        build.result()
-    log("build", t0, kernels=["ring_resolve"], ptxas=ptxas_by_kernel(ptxas),
+        builds = [pool.submit(cuda_build.build, k) for k in CUDA_SOURCES]
+        reports = [pool.submit(cuda_build.ptxas_report, k)
+                   for k in CUDA_SOURCES]
+        ptxas = [line for f in reports for line in f.result()]
+        for f in builds:
+            f.result()
+    log("build", t0, kernels=list(CUDA_SOURCES), ptxas=ptxas_by_kernel(ptxas),
         smem_by_variant={v: stage_shape(te)[2] for v, te in
                          (("te4", 4), ("te5", 5), ("generic", P * E))})
 
     entry = phase_kernel(dev)
+    quiet_entry = phase_quiet_hop(dev)
     # The depths cut to hold the whole script under the time limit with
     # phase bench (PERF.md §4; no width is cut): the C-off runs at 300
     # tenants, latency_hops at two sizes, 3 soak schedules, 20 rounds of
@@ -3823,19 +4277,22 @@ def main() -> int:
         phase_round(dev, name, rounds=20)
     phase_small_card_vs_cpu(dev)
     oracle_launches, oracle_by_variant = phase_raft_oracle(dev)
-    launches, by_variant = phase_engine(dev)
+    launches, by_variant, quiet = phase_engine(dev)
     if launches <= 0:
         raise AssertionError("ring_resolve was not launched on the main path")
     if not (by_variant["te4"] and by_variant["te5"]):
         raise AssertionError(f"the TE=4 and TE=5 kernels were not both "
                              f"launched on the main path: {by_variant}")
-    off_launches, off_by_variant = phase_engine(
+    _require_quiet_hop("the main path", quiet)
+    off_launches, off_by_variant, off_quiet = phase_engine(
         dev, name="engine_native_off", native=False, tenants=300,
         quorum_gets=30)
+    _require_quiet_hop("the main path, C host code off", off_quiet)
     suite = phase_suite_card(dev, race=dict(first_writes=300),
                              compact=dict(rounds=20), obs=dict(tenants=300))
-    http_launches, http_by_variant, http_restart = phase_http_front(
-        dev, tenants=500, quorum_gets=50)
+    http_launches, http_by_variant, http_restart, http_quiet = \
+        phase_http_front(dev, tenants=500, quorum_gets=50)
+    _require_quiet_hop("the HTTP front's path", http_quiet)
     if not (http_by_variant["te5"] and http_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on the HTTP front's path: "
@@ -3859,7 +4316,7 @@ def main() -> int:
         try:
             mesh_by_layout = phase_mesh_round(dev, rounds=6)
             from etcd_tpu_torch.parallel.mesh import make_mesh
-            em_launches, em_by_variant = phase_engine(
+            em_launches, em_by_variant, em_quiet = phase_engine(
                 dev, mesh=make_mesh([dev] * 4, peers_axis=1),
                 name="engine_mesh", tenants=300, quorum_gets=30)
             if not (em_by_variant["te4"] and em_by_variant["te5"]):
@@ -3873,14 +4330,16 @@ def main() -> int:
                 dev, groups=(12_500, G))
             soak_launches, soak_by_variant = phase_soak_kernel(
                 dev, schedules=3)
-            http_off_launches, http_off_by_variant, http_off_restart = \
-                phase_http_front(dev, native=False, tenants=300,
-                                 quorum_gets=30)
+            (http_off_launches, http_off_by_variant, http_off_restart,
+             http_off_quiet) = phase_http_front(dev, native=False,
+                                                tenants=300, quorum_gets=30)
             pool_stops = phase_pool_serve(dev, tenants=300, quorum_gets=30)
             phase_tsan()
         finally:
             soak_hold.set()
         soak_f_launches, soak_f_by_variant = soak_f.result()
+    _require_quiet_hop("the HTTP front's path, C host code off",
+                       http_off_quiet)
     if not (soak_f_by_variant["te5"] and soak_f_by_variant["generic"]):
         raise AssertionError(f"the TE=5 and generic kernels were not both "
                              f"launched on frames_soak: {soak_f_by_variant}")
@@ -3889,13 +4348,17 @@ def main() -> int:
     entry["launches"] = launches
     entry["launches_by_variant"] = by_variant
     entry["launches_by_path"] = {
-        "engine": {"launches": launches, "by_variant": by_variant},
+        "engine": {"launches": launches, "by_variant": by_variant,
+                   "quiet_hop_by_pass": quiet},
         "engine_native_off": {"launches": off_launches,
-                              "by_variant": off_by_variant},
+                              "by_variant": off_by_variant,
+                              "quiet_hop_by_pass": off_quiet},
         "http_front": {"launches": http_launches,
-                       "by_variant": http_by_variant},
+                       "by_variant": http_by_variant,
+                       "quiet_hop_by_pass": http_quiet},
         "http_front_native_off": {"launches": http_off_launches,
-                                  "by_variant": http_off_by_variant},
+                                  "by_variant": http_off_by_variant,
+                                  "quiet_hop_by_pass": http_off_quiet},
         "http_front_sigkill_restart": {
             "launches": sum(http_restart.values()),
             "by_variant": http_restart},
@@ -3915,7 +4378,8 @@ def main() -> int:
             "launches": sum(sum(v.values()) for v in mesh_by_layout.values()),
             "by_layout": mesh_by_layout},
         "engine_mesh": {"launches": em_launches,
-                        "by_variant": em_by_variant},
+                        "by_variant": em_by_variant,
+                        "quiet_hop_by_pass": em_quiet},
         "raft_oracle": {"launches": oracle_launches,
                         "by_variant": oracle_by_variant},
         "multihost_collective": {
@@ -3931,7 +4395,16 @@ def main() -> int:
                                   for v in bench_launches.values()),
                   "by_scenario": bench_launches}}
     entry["equal_to_plain"] = True
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    # The fused quiet hop's launches on the main path, and by path where
+    # they are counted (in process; mesh cells take the PyTorch hop).
+    quiet_entry["launches"] = sum(quiet.values())
+    quiet_entry["launches_by_path"] = {
+        "quiet_hop_phase": quiet_entry.pop("launches_by_pass"),
+        **{path: entry["launches_by_path"][path]["quiet_hop_by_pass"]
+           for path in ("engine", "engine_native_off", "http_front",
+                        "http_front_native_off", "engine_mesh")}}
+    quiet_entry["equal_to_plain"] = True
+    print(json.dumps({"kernels": [entry, quiet_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -25,6 +25,10 @@ What differs from the JAX program:
 - JAX selects the quiescent fast path with `lax.cond` on device; here
   each hop reads `_quiet_pred` back to the host once (one device sync
   per hop) and runs exactly one of the two message phases.
+- On the card, an unsharded hop with a prop_slot and the CUDA resolve
+  runs its predicate and its quiet branch as the hand-written passes of
+  `ops/quiet_hop.py` (`quiet_hop.fusable`), bit-identical to the PyTorch
+  branch here; `hop_counts` counts fused, quiet (PyTorch) and full hops.
 - Functions never write into their inputs: the engine keeps references
   to earlier states (the compact diff compares against the pre-round
   state).
@@ -62,6 +66,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from etcd_tpu_torch.ops import quiet_hop
 from etcd_tpu_torch.ops.ring_resolve import ring_resolve
 from etcd_tpu_torch.ops.state import (CANDIDATE, FOLLOWER, F_COMMIT, F_HINT,
                                       F_INDEX, F_LOGTERM, F_NENT, F_REJECT,
@@ -876,17 +881,40 @@ def _step_body(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
 
 def _hop(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
          prop_count: torch.Tensor, prop_slot: torch.Tensor, tick: bool,
-         force_hb: bool, resolve, blk: _Blk
+         force_hb: bool, resolve, blk: _Blk, drop_mask=None
          ) -> Tuple[GroupState, torch.Tensor]:
     """One message-phase+routing pass with the fast path selected by one
-    host read of the quiescence predicate (exactly one branch runs)."""
-    quiet = _quiet(st, cfg, inbox, active_mask(st), tick, blk)
+    host read of the quiescence predicate (exactly one branch runs), the
+    routed inbox times `drop_mask` where one is given. Where
+    `quiet_hop.fusable` holds, the predicate and the quiet branch are the
+    hand-written passes of ops/quiet_hop.py; `hop_counts` counts the
+    hops each way."""
+    fused = quiet_hop.fusable(cfg, st, prop_slot, resolve, blk.comm)
+    if fused:
+        quiet = _read_flag(quiet_hop.quiet_flag(cfg, st, inbox, tick))
+    else:
+        quiet = _quiet(st, cfg, inbox, active_mask(st), tick, blk)
+    _count_hop("fused" if fused and quiet else "quiet" if quiet else "full")
+    if fused and quiet:
+        return quiet_hop.fused_hop(cfg, st, inbox, prop_count.to(I32),
+                                   prop_slot.to(I32), tick, force_hb,
+                                   drop_mask)
     s, out = _step_body(cfg, st, inbox, prop_count, prop_slot, tick,
                         quiet=quiet, force_hb=force_hb, resolve=resolve,
                         blk=blk)
-    if blk.comm is None:
-        return s, route_local(out)
-    return s, route_block(out, blk.comm)
+    routed = (route_local(out) if blk.comm is None
+              else route_block(out, blk.comm))
+    return s, routed if drop_mask is None else routed * drop_mask
+
+
+hop_counts = {"fused": 0, "quiet": 0, "full": 0}
+
+
+def _count_hop(kind: str) -> None:
+    """One hop of `kind` in `hop_counts` (under `_wait_lock`: the cells of
+    a device mesh are threads)."""
+    with _wait_lock:
+        hop_counts[kind] += 1
 
 
 def step_routed_auto(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
@@ -911,9 +939,7 @@ def step_routed_auto(cfg: KernelConfig, st: GroupState, inbox: torch.Tensor,
     for h in range(hops):
         st, inbox = _hop(cfg, st, inbox, prop_count if h == 0 else zero,
                          prop_slot, bool(tick) and h == 0, False, resolve,
-                         blk)
-        if drop_mask is not None:
-            inbox = inbox * drop_mask
+                         blk, drop_mask)
     return st, inbox
 
 
@@ -1006,9 +1032,7 @@ def step_routed_read_auto(cfg: KernelConfig, st: GroupState,
     for h in range(hops):
         st, inbox = _hop(cfg, st, inbox, prop_count if h == 0 else zero,
                          prop_slot, bool(tick) and h == 0, h == 0, resolve,
-                         blk)
-        if drop_mask is not None:
-            inbox = inbox * drop_mask
+                         blk, drop_mask)
         to_lead = inbox[rows, lrow.long()]                 # (G, P_from, F)
         mt = to_lead[..., F_TYPE]
         fresh = (((mt == M_HB_RESP) | (mt == M_APP_RESP))

@@ -472,7 +472,9 @@ class MultiEngine:
         #   ack, summed over the acked writes: "ack.queue", "ack.round",
         #   "ack.apply", "ack.gate" and the COUNT of writes "ack.writes",
         #   suffixed "[k]" when applier shard k acked them (unsuffixed:
-        #   the synchronous path). See _ack_account.
+        #   the synchronous path). See _ack_account. And the COUNTS of
+        #   the round's hops by branch, "hop.fused", "hop.quiet" and
+        #   "hop.full" (ops/kernel.py's hop_counts).
         self.phase_s: Dict[str, float] = {}
         # Observability plane (obs.py): per-compartment Prometheus
         # series with children pre-bound to this engine's shard
@@ -1880,6 +1882,7 @@ class MultiEngine:
         tick = (self.round_no % self.cfg.ticks_per_round) == 0
         kernel = self._kernel
         w_quiet = kernel._quiet.wait_s
+        hops0 = dict(kernel.hop_counts)
         pc_d = torch.as_tensor(prop_count, device=self.device)
         ps_d = torch.as_tensor(prop_slot, device=self.device)
         flags_d = anh_d = None
@@ -1907,6 +1910,7 @@ class MultiEngine:
         # reads (summed over the cells' threads on a mesh) and the
         # readback's reads below.
         d_wait = kernel._quiet.wait_s - w_quiet
+        d_hops = {k: n - hops0[k] for k, n in kernel.hop_counts.items()}
         self._rows_wait = 0.0
 
         # -- 3. read back round k (blocks until the device finishes;
@@ -2052,6 +2056,10 @@ class MultiEngine:
         if o:
             ph["dispatch.wait"] = (ph.get("dispatch.wait", 0.0) + d_wait
                                    + self._rows_wait)
+            # The round's hops by branch, counts: the fused passes, the
+            # PyTorch quiet branch, the full sequential path.
+            for k, n in d_hops.items():
+                ph[f"hop.{k}"] = ph.get(f"hop.{k}", 0.0) + n
             o.h_phase["dispatch"].observe(d_dispatch)
             o.h_phase["readback"].observe(d_readback)
             o.h_step.observe(d_dispatch + d_readback)

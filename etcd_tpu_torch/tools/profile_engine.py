@@ -71,9 +71,14 @@ def main(argv=None):
               f"writes/s")
         ph = {k: v - ph0.get(k, 0.0) for k, v in dict(eng.phase_s).items()}
         # The round's wall time leaves out "dispatch.wait" (a part of
-        # dispatch and readback) and the per-write "ack.*" stages.
+        # dispatch and readback), the per-write "ack.*" stages and the
+        # "hop.*" counts.
+        hops = {k: ph.pop(k) for k in list(ph) if k.startswith("hop.")}
         acct = sum(v for k, v in ph.items()
                    if k != "dispatch.wait" and not k.startswith("ack."))
+        if hops:
+            print("  hops: " + ", ".join(f"{k[4:]} {int(v)}"
+                                         for k, v in hops.items()))
         for k, v in sorted(ph.items(), key=lambda kv: -kv[1]):
             print(f"  {k:14s} {1000*v/n_rounds:9.3f} ms/round "
                   f"{100*v/elapsed:6.2f}% of wall")
